@@ -112,6 +112,24 @@ class GDKVM(nn.Module):
         return logits, StreamState(mem=mem, frames_seen=state.frames_seen + t)
 
 
+def train_model_config(cfg: ModelConfig,
+                       image_size: int | None = None) -> ModelConfig:
+    """Resolve ``gdr_impl="auto"`` for training, by memory-token count.
+
+    As in the JAX package: keep "auto" (the kernels with the stored
+    backward on the card, the plain chunked form on the CPU) when the
+    stride-16 token count reaches 128 (256² frames: N=256), else resolve
+    "chunked", whose autograd is the training path at EchoNet scale (112²:
+    N=49).  Other values pass through.
+    """
+    if cfg.gdr_impl == "auto":
+        n_tokens = None if image_size is None else (image_size // 16) ** 2
+        if n_tokens is not None and n_tokens >= 128:
+            return cfg
+        return dataclasses.replace(cfg, gdr_impl="chunked")
+    return cfg
+
+
 def _lecun_normal_(p: Tensor, fan_in: int, gen: torch.Generator) -> None:
     """flax ``lecun_normal``: a normal truncated at ±2σ, scaled so that the
     variance is 1/fan_in.  Drawn on the CPU, so a seed gives the same

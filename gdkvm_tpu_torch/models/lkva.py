@@ -22,7 +22,7 @@ Tensor = torch.Tensor
 # gdr_impl → scan with the (B, H, T, N, d) signature of core/gdr.py.
 GDR_IMPLS = {
     "auto": gdr_cuda.gdr_fwd,        # kernel for CUDA tensors, chunked on CPU
-    "pallas": gdr_cuda.gdr_fwd_cuda,  # the kernel, or raise
+    "pallas": gdr_cuda.gdr_kernel,    # the kernels, or raise
     "chunked": gdr.gdr_chunked,
     "ref": gdr.gdr_ref,
 }

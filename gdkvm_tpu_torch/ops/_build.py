@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` becomes ``_build/lib<name>-<hash>.so``, a shared
 library with a plain C interface, compiled for Hopper (``sm_90a``).  The hash
-covers the source and the flags, so an edited source builds anew and an
-unchanged one is reused from the build directory.  Nothing is compiled when
+covers the source, the shared headers ``csrc/*.cuh`` and the flags, so an
+edited source builds anew and an unchanged one is reused from the build
+directory.  Nothing is compiled when
 this module is imported: the kernels' wrappers call :func:`build` on first
 use.
 """
@@ -42,9 +43,11 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` is built, keyed on its source and flags."""
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """Where ``csrc/<name>.cu`` is built, keyed on its source, the shared
+    headers (``csrc/*.cuh``) and the flags."""
+    sources = [CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))]
+    digest = hashlib.sha256(b"".join(p.read_bytes() for p in sources)
+                            + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 

@@ -181,8 +181,21 @@ def test_kernel_refuses_cpu_tensors():
 
 
 def test_kernel_shared_memory_limit():
-    """The kernel's tiles fit a Hopper block at the streaming shapes (N=49
-    at 112², N=64) and not at the 256² training shape (N=256)."""
-    assert gdr_cuda.smem_bytes(49, 64, 64) <= gdr_cuda.SMEM_LIMIT_BYTES
-    assert gdr_cuda.smem_bytes(64, 64, 64) <= gdr_cuda.SMEM_LIMIT_BYTES
-    assert gdr_cuda.smem_bytes(256, 64, 64) > gdr_cuda.SMEM_LIMIT_BYTES
+    """The kernels' shared memory fits a Hopper block at the streaming shapes
+    (N=49 at 112², N=64) and at the 256² training shape (N=256, d=64).  The
+    forward keeps Q, K and A in shared memory up to N=137 at d=64 (the
+    streaming layout), solves by panels above that, and fits up to N=301;
+    the backward fits beyond."""
+    limit = gdr_cuda.SMEM_LIMIT_BYTES
+    for n in (49, 64, 137):
+        assert not gdr_cuda.fwd_uses_panels(n, 64, 64)
+        assert gdr_cuda.smem_bytes(n, 64, 64) <= limit
+    for n in (138, 256, 301):
+        assert gdr_cuda.fwd_uses_panels(n, 64, 64)
+        assert gdr_cuda.smem_bytes(n, 64, 64) <= limit
+    assert gdr_cuda.smem_bytes(256, 64, 64) == 209_408
+    assert gdr_cuda.smem_bytes(301, 64, 64) == limit
+    assert gdr_cuda.smem_bytes(302, 64, 64) > limit
+    assert gdr_cuda.bwd_smem_bytes(256, 64, 64) == 205_216 <= limit
+    assert gdr_cuda.bwd_smem_bytes(301, 64, 64) <= limit
+    assert gdr_cuda.bwd_scratch_floats(256, 64, 64) * 4 == 458_752
