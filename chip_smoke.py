@@ -5,25 +5,39 @@
 Phases, each of which fails the run (nonzero exit) when it fails:
 
 1. device and versions (torch, CUDA, nvcc, the card's name and power limit);
-2. build the GDR kernels (``gdkvm_tpu_torch/csrc/gdr_fwd.cu`` and
-   ``gdr_bwd.cu``) with nvcc from the checkout's sources, in parallel;
+2. build the GDR kernels (``gdkvm_tpu_torch/csrc/gdr_fwd.cu``,
+   ``gdr_bwd.cu`` and ``gdr_chain.cu``) with nvcc from the checkout's
+   sources, in parallel;
 3. each kernel against its plain PyTorch version on identical inputs: the
    forward without residuals at the streaming shapes, the forward with its
    residuals (S_{t-1}, U, W) and the backward at the training shape (B=8
    H=4 T=10 N=256 d=64, bf16 q/k/v) and at small shapes; fused against
-   stored gradients through the autograd Function;
+   stored gradients through the autograd Function; the chain kernel
+   against ``gdr_chain`` at the serving shapes (B=8 H=4 T=16 and 32 N=49),
+   the training shape, N=7, d_k≠d_v and T=1, chained calls, and the chain
+   split (batched solve + kernel) against the monolith kernel;
 4. streaming (the first main path): the ts8 model at full width streams
    8 × 32-frame chunks at 112² with the state carried, through the forward
    kernel; launches are counted and the result held against the plain GDR;
-5. training (the second main path): ``train(cfg, max_steps)`` on the
+5. serving (the third main path): the ts8_112 model at full width in a
+   ``BatchingEngine`` (8 slots, 16-frame chunks) behind ``make_server``; 8
+   ``ServeClient`` sessions stream at once (one ragged, one resized on the
+   device), under ``GDKVM_GDR_FWD=monolith`` and ``=chain``; launches are
+   counted (one residual-free launch a tick) and every session's masks are
+   held against ``stream_video``, and chain against monolith;
+6. training (the second main path): ``train(cfg, max_steps)`` on the
    ``ts8_256`` recipe (256², batch 8 × 10 frames, 4 classes, bootstrapped
    CE) on synthetic clips, in the stored and the fused backward mode, with
-   every kernel's and plain version's calls counted; then one step's
-   gradients (finite everywhere, nonzero in the LKVA projections) and the
-   kernel path against the plain chunked path from the same weights;
-6. times on the card: frames/s of streaming and steps/s of training on both
-   paths, and each kernel against its plain version at its main path's
-   shape, timed in turns.
+   every kernel's and plain version's calls counted, then the same with
+   the chain forward; one step's gradients (finite everywhere, nonzero in
+   the LKVA projections) and the kernel path against the plain chunked
+   path from the same weights, and chain against monolith;
+7. times on the card: frames/s of streaming and steps/s of training on both
+   paths; serving frames/s, request latency p50/p95/p99 (16- and 256-frame
+   requests), queue wait and service time and peak memory per forward
+   split, in turns; each kernel against its plain version at its main
+   path's shape, and the chain split against the monolith kernel at the
+   serving and the training shape, timed in turns.
 
 The line before the last is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
@@ -32,11 +46,13 @@ exits nonzero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -140,17 +156,25 @@ def phase_device() -> dict:
     return {"smi": smi.splitlines()[0]}
 
 
+KERNELS = ("gdr_fwd", "gdr_bwd", "gdr_chain")
+
+
 def phase_build() -> None:
-    """Build both kernels at once (one nvcc each), then check that the
-    wrappers' shared-memory and scratch sizes agree with the sources'."""
+    """Build the three kernels at once (one nvcc each), then check that the
+    wrappers' shared-memory and scratch sizes and the chain's largest d_k
+    agree with the sources'."""
     from gdkvm_tpu_torch.ops import _build, gdr_cuda
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        paths = list(pool.map(_build.build, ["gdr_fwd", "gdr_bwd"]))
+    with ThreadPoolExecutor(max_workers=len(KERNELS)) as pool:
+        paths = list(pool.map(_build.build, KERNELS))
     print(f"build: {', '.join(p.name for p in paths)} in "
           f"{time.perf_counter() - t0:.1f} s")
     for path in paths:
         print(path.with_suffix(".log").read_text().strip())
+    chain = gdr_cuda._chain_lib()
+    if chain.gdr_chain_max_dk() != gdr_cuda.CHAIN_MAX_DK:
+        raise AssertionError(f"chain max d_k: source {chain.gdr_chain_max_dk()}, "
+                             f"wrapper {gdr_cuda.CHAIN_MAX_DK}")
     fwd, bwd = gdr_cuda._lib(), gdr_cuda._bwd_lib()
     for n, dk, dv in ((49, 64, 64), (7, 8, 8), (64, 64, 64), (137, 64, 64),
                       (138, 64, 64), (256, 64, 64), (256, 32, 64),
@@ -300,6 +324,80 @@ def phase_fused_vs_stored(device) -> None:
                grads["stored"][3:], BWD_REL)
 
 
+# The chain kernel against its plain version, and the chain split against
+# the monolith kernel: fp32 math on both sides, summation order only.
+CHAIN_REL = 1e-5
+SERVE_SHAPE = (8, 4, 16, 49, 64, 64)      # B H T N d_k d_v: 8 slots × 16 frames at 112²
+CHAIN_CASES = [
+    ("serve T=16 bf16", SERVE_SHAPE, "bfloat16", False),
+    ("serve T=16 bf16", SERVE_SHAPE, "bfloat16", True),
+    ("serve T=32 bf16", (8, 4, 32, 49, 64, 64), "bfloat16", False),
+    ("serve T=32 bf16", (8, 4, 32, 49, 64, 64), "bfloat16", True),
+    ("serve T=16 fp32", SERVE_SHAPE, "float32", False),
+    ("train bf16", TRAIN_SHAPE, "bfloat16", True),
+    ("N=7", (8, 4, 10, 7, 64, 64), "bfloat16", True),
+    ("dk=32 dv=64", (2, 3, 5, 49, 32, 64), "float32", True),
+    ("dk=64 dv=40", (2, 3, 5, 49, 64, 40), "float32", True),
+    ("T=1", (8, 4, 1, 49, 64, 64), "bfloat16", True),
+]
+
+
+def phase_chain_vs_plain(device) -> float:
+    """The chain kernel against ``gdr_chain`` on identical inputs (U, W from
+    one batched solve), with and without S_{t-1}; two chained 8-frame calls
+    against one 16-frame call; then the whole chain split (batched solve +
+    kernel) against the monolith kernel.  Returns the worst absolute error
+    against the plain version."""
+    import torch
+    from gdkvm_tpu_torch.core import gdr
+    from gdkvm_tpu_torch.ops import gdr_cuda
+    gen = torch.Generator(device=device).manual_seed(5)
+    worst = 0.0
+    for name, shape, dt, save in CHAIN_CASES:
+        q, k, v, beta, alpha, s0 = _gdr_inputs(gen, *shape, getattr(torch, dt), device)
+        u, w = gdr_cuda._wy(k, v, beta, None)
+        got = gdr_cuda.gdr_chain_cuda(q, k, u, w, alpha, s0, save_states=save)
+        want = gdr.gdr_chain(q, k, u, w, alpha, s0, save_states=save)
+        torch.cuda.synchronize()
+        names = ("o", "s_T", "states")[:3 if save else 2]
+        worst = max(worst, _check_rel(
+            f"chain kernel vs plain [{name}{', states' if save else ''}] {shape} {dt}",
+            names, got[:len(names)], want[:len(names)], CHAIN_REL))
+
+    # Two chained 8-frame calls with the state carried equal one 16-frame call.
+    q, k, v, beta, alpha, s0 = _gdr_inputs(gen, *SERVE_SHAPE, torch.bfloat16, device)
+    u, w = gdr_cuda._wy(k, v, beta, None)
+    o_full, s_full, _ = gdr_cuda.gdr_chain_cuda(q, k, u, w, alpha, s0, save_states=False)
+    half = lambda x, lo, hi: x[:, :, lo:hi].contiguous()
+    o_a, s_a, _ = gdr_cuda.gdr_chain_cuda(
+        *(half(x, 0, 8) for x in (q, k, u, w, alpha)), s0, save_states=False)
+    o_b, s_b, _ = gdr_cuda.gdr_chain_cuda(
+        *(half(x, 8, 16) for x in (q, k, u, w, alpha)), s_a, save_states=False)
+    torch.cuda.synchronize()
+    _check_rel("chain kernel chained 8+8 vs 16", ("o", "s_T"),
+               (torch.cat([o_a, o_b], 2), s_b), (o_full, s_full), CHAIN_REL)
+
+    # The chain split against the monolith kernel: residual-free at the
+    # serving shape; with S_{t-1}, U, W (the stored backward's residuals) at
+    # the training shape.
+    os.environ["GDKVM_GDR_FWD"] = "chain"
+    got = gdr_cuda._fwd_no_residuals(q, k, v, beta, alpha, s0, None)
+    os.environ.pop("GDKVM_GDR_FWD")
+    want = gdr_cuda.gdr_fwd_cuda(q, k, v, beta, alpha, s0)
+    torch.cuda.synchronize()
+    _check_rel(f"chain split vs monolith kernel [serve] {SERVE_SHAPE} bf16",
+               ("o", "s_T"), got, want, CHAIN_REL)
+    q, k, v, beta, alpha, s0 = _gdr_inputs(gen, *TRAIN_SHAPE, torch.bfloat16, device)
+    u, w = gdr_cuda._wy(k, v, beta, None)
+    o, s_t, states = gdr_cuda.gdr_chain_cuda(q, k, u, w, alpha, s0, save_states=True)
+    want = gdr_cuda.gdr_fwd_cuda_residuals(q, k, v, beta, alpha, s0)
+    torch.cuda.synchronize()
+    _check_rel(f"chain split vs monolith kernel [train, residuals] {TRAIN_SHAPE} bf16",
+               ("o", "s_T", "states", "U", "W"), (o, s_t, states, u, w), want,
+               CHAIN_REL)
+    return worst
+
+
 def phase_gdr_times(device) -> tuple[float, float]:
     """Median ms of the forward kernel and of the plain GDR at the streaming
     bench shape, timed in turns (plain, kernel, kernel, plain)."""
@@ -387,28 +485,34 @@ def phase_model(device) -> dict:
     return {"launches": counts["fwd_kernel"]}
 
 
-_ZERO = {"fwd_kernel": 0, "bwd_kernel": 0, "plain_fwd": 0, "plain_bwd": 0,
+_ZERO = {"fwd_kernel": 0, "chain_kernel": 0, "bwd_kernel": 0,
+         "residual_fwd": 0, "plain_fwd": 0, "plain_chain": 0, "plain_bwd": 0,
          "stored_bwd": 0}
 
 
-def _reset_counts() -> None:
+def _counters():
     from gdkvm_tpu_torch.core import gdr
     from gdkvm_tpu_torch.ops import gdr_cuda
-    for c in (gdr_cuda.LAUNCHES, gdr_cuda.BWD_LAUNCHES, gdr.CHUNKED_CALLS,
-              gdr.BWD_REF_CALLS, gdr.BWD_STORED_CALLS):
+    return {"fwd_kernel": gdr_cuda.LAUNCHES, "chain_kernel": gdr_cuda.CHAIN_LAUNCHES,
+            "bwd_kernel": gdr_cuda.BWD_LAUNCHES,
+            "residual_fwd": gdr_cuda.RESIDUAL_LAUNCHES,
+            "plain_fwd": gdr.CHUNKED_CALLS, "plain_chain": gdr.CHAIN_CALLS,
+            "plain_bwd": gdr.BWD_REF_CALLS, "stored_bwd": gdr.BWD_STORED_CALLS}
+
+
+def _reset_counts() -> None:
+    for c in _counters().values():
         c.reset()
 
 
 def _read_counts() -> dict:
-    """Launches of each kernel, and calls of each plain version: the plain
-    forward (gdr_chunked, with or without residuals), the backward kernel's
-    plain version (gdr_bwd_ref), and the stored backward (plain torch ops by
+    """Launches of each kernel (residual_fwd: the forward launches, of either
+    forward kernel, that wrote the backward's residuals), and calls of each
+    plain version: the plain forward (gdr_chunked, with or without
+    residuals), the plain chain (gdr_chain), the backward kernel's plain
+    version (gdr_bwd_ref), and the stored backward (plain torch ops by
     design, as the JAX package runs it in XLA)."""
-    from gdkvm_tpu_torch.core import gdr
-    from gdkvm_tpu_torch.ops import gdr_cuda
-    return {"fwd_kernel": gdr_cuda.LAUNCHES.n, "bwd_kernel": gdr_cuda.BWD_LAUNCHES.n,
-            "plain_fwd": gdr.CHUNKED_CALLS.n, "plain_bwd": gdr.BWD_REF_CALLS.n,
-            "stored_bwd": gdr.BWD_STORED_CALLS.n}
+    return {name: c.n for name, c in _counters().items()}
 
 
 def _train_cfg():
@@ -443,7 +547,7 @@ def phase_train(device) -> dict:
         print(f"training main path [{mode}]: counts {counts}; last metrics "
               + " ".join(f"{k} {v:.6f}" for k, v in metrics.items())
               + f"; {dt:.1f} s with model init and host data")
-        want = dict(_ZERO, fwd_kernel=TRAIN_STEPS,
+        want = dict(_ZERO, fwd_kernel=TRAIN_STEPS, residual_fwd=TRAIN_STEPS,
                     bwd_kernel=TRAIN_STEPS if mode == "fused" else 0,
                     stored_bwd=TRAIN_STEPS if mode == "stored" else 0)
         if counts != want:
@@ -509,8 +613,10 @@ def phase_train_grads(device) -> None:
             metrics, grads = loss_and_grads(state, batch, cfg)
             counts = _read_counts()
             want = dict(_ZERO, **{"chunked": {"plain_fwd": 1},
-                                  "stored": {"fwd_kernel": 1, "stored_bwd": 1},
-                                  "fused": {"fwd_kernel": 1, "bwd_kernel": 1}}[mode])
+                                  "stored": {"fwd_kernel": 1, "residual_fwd": 1,
+                                             "stored_bwd": 1},
+                                  "fused": {"fwd_kernel": 1, "residual_fwd": 1,
+                                            "bwd_kernel": 1}}[mode])
             if counts != want:
                 raise AssertionError(f"[{dtype} {mode}] counts {counts}, expected {want}")
             names = [n for n, _ in state.model.named_parameters()]
@@ -617,6 +723,336 @@ def phase_train_kernel_times(device) -> dict:
     return {"fwd": (f_ms, f_plain), "bwd": (b_ms, b_plain)}
 
 
+# The serving main path: the engine's pool and chunk, at the model's size.
+SERVE = dict(streams=8, chunk=16, image_size=112)
+# Served masks against stream_video (batch 1) on the same weights.  In fp32
+# compute, other cuDNN algorithms at batch 8 move logits by ~1e-6 and flip a
+# handful of near-tied pixels of a random init (measured ≥ 0.999996), so
+# served masks must agree on SERVE_AGREE of the pixels, and chain- with
+# monolith-mode masks too.  In bf16 those differences become bf16
+# roundings: the model's own chunked stream of the 8 videos as one batch
+# agrees with stream_video on only ~99.4% of the pixels (measured), so there
+# serving may lose at most BF16_SLACK of agreement beyond what batching
+# itself loses; chain- and monolith-mode masks, whose GDR outputs differ by
+# ~5e-7 relative, agree on ~99.89% (measured) and are held to the same bar.
+SERVE_AGREE = 0.999
+BF16_SLACK = 1e-3
+
+
+def _serve_model(device, compute_dtype: str = "bfloat16"):
+    """configs/gdkvm_ts8_112.yaml's ts8 model (4 classes) at full width,
+    seeded random weights (the same for either compute dtype)."""
+    import dataclasses
+    import torch
+    from gdkvm_tpu_torch.config.schema import ts8_112
+    from gdkvm_tpu_torch.models.gdkvm import GDKVM, init_params
+    cfg = dataclasses.replace(ts8_112().model, compute_dtype=compute_dtype)
+    return init_params(GDKVM(cfg, device=device), torch.Generator().manual_seed(0))
+
+
+def _serve_videos():
+    """Seeded uint8 videos of 8 sessions: 64 frames at 112²; session 6 a
+    ragged 70 frames; session 7 at 160×200, resized on the device."""
+    import numpy as np
+    videos = []
+    for i in range(8):
+        rng = np.random.default_rng(100 + i)
+        hw = (160, 200) if i == 7 else (112, 112)
+        videos.append(rng.integers(0, 256, (70 if i == 6 else 64, *hw, 1), np.uint8))
+    return videos
+
+
+def _batched_stream(model, videos, chunk: int):
+    """The model's own chunked stream of ``videos`` as one batch, the state
+    carried, each padded as stream_video pads it → per-video uint8 masks."""
+    import numpy as np
+    import torch
+    from gdkvm_tpu_torch.eval.metrics import mask_from_logits
+    device = next(model.parameters()).device
+    n_chunks = max(-(-len(v) // chunk) for v in videos)
+    padded = [np.concatenate([v, np.repeat(v[-1:], n_chunks * chunk - len(v), axis=0)])
+              for v in videos]
+    x = torch.from_numpy(np.stack(padded)).to(device)
+    state, outs = None, []
+    with torch.inference_mode():
+        for lo in range(0, n_chunks * chunk, chunk):
+            logits, state = model(x[:, lo:lo + chunk].to(torch.float32) / 255.0, state)
+            outs.append(mask_from_logits(logits))
+    masks = torch.cat(outs, 1).cpu().numpy()
+    return [m[:len(v)] for m, v in zip(masks, videos)]
+
+
+@contextlib.contextmanager
+def _served(model):
+    """A BatchingEngine behind make_server on 127.0.0.1 (port 0), the
+    server on its own thread → (engine, (host, port)); all closed on exit."""
+    from gdkvm_tpu_torch.serve import BatchingEngine, make_server
+    engine = BatchingEngine(model=model, **SERVE)
+    server = make_server(engine, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield engine, server.server_address
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+        engine.close()
+
+
+def _one_session(addr, video):
+    from gdkvm_tpu_torch.serve import ServeClient
+    client = ServeClient(*addr)
+    client.open()
+    try:
+        return client.infer(video)
+    finally:
+        client.close()
+
+
+def phase_serve(device) -> dict:
+    """The serving main path, once per compute dtype and forward split: 8
+    ServeClient sessions stream their videos at once through the engine
+    behind the HTTP server, with every count 0 just before and read just
+    after.  Each session's masks are held against a reference on the same
+    weights (SERVE_AGREE), and in fp32 the chain run's against the monolith
+    run's.  Returns the chain launches and the bf16 model."""
+    import numpy as np
+    import torch
+    from gdkvm_tpu_torch.eval.streaming import stream_video
+    from gdkvm_tpu_torch.ops.preproc import resize_u8
+    from gdkvm_tpu_torch.serve import ServeClient
+    videos = _serve_videos()
+    size = SERVE["image_size"]
+    refs = [v if v.shape[1:3] == (size, size) else
+            resize_u8(torch.from_numpy(v).to(device), (size, size)).cpu().numpy()
+            for v in videos]
+    chain_launches, models = 0, {}
+    for dtype in ("float32", "bfloat16"):
+        os.environ.pop("GDKVM_GDR_FWD", None)     # references: the default split
+        model = models[dtype] = _serve_model(device, dtype)
+        cfg = model.cfg
+        print(f"serve: ts8_112 model ({sum(p.numel() for p in model.parameters())} "
+              f"parameters, {cfg.num_classes} classes, {dtype} compute), engine "
+              f"{SERVE}; 8 sessions of {[v.shape[:3] for v in videos]} frames")
+        single = [stream_video(model, r, chunk=SERVE["chunk"]) for r in refs]
+        bar = SERVE_AGREE
+        if dtype == "bfloat16":
+            batched = [float((b == w).mean()) for b, w in
+                       zip(_batched_stream(model, refs, SERVE["chunk"]), single)]
+            print(f"[{dtype}] the model's batch-8 stream vs stream_video, per "
+                  "session: " + " ".join(f"{x:.6f}" for x in batched))
+            bar = min(batched) - BF16_SLACK
+        masks = {}
+        for mode in ("monolith", "chain"):
+            os.environ["GDKVM_GDR_FWD"] = mode
+            with _served(model) as (engine, addr):
+                _reset_counts()
+                ticks0 = engine.ticks
+                with ThreadPoolExecutor(max_workers=len(videos)) as pool:
+                    masks[mode] = list(pool.map(lambda v: _one_session(addr, v), videos))
+                ticks = engine.ticks - ticks0
+                counts = _read_counts()
+                health = ServeClient(*addr).health()
+            key = "chain_kernel" if mode == "chain" else "fwd_kernel"
+            print(f"serving main path [{dtype}, {mode}]: {ticks} ticks, counts {counts}")
+            print(f"/healthz [{dtype}, {mode}]: {json.dumps(health)}")
+            if ticks < 1 or counts != dict(_ZERO, **{key: ticks}):
+                raise AssertionError(f"serving counts [{dtype}, {mode}] {counts}: "
+                                     f"expected {ticks} residual-free {key} launches, "
+                                     f"one a tick, and nothing else")
+            chain_launches += counts["chain_kernel"]
+            for got, want in zip(masks[mode], single):
+                if got.shape != want.shape or got.dtype != np.uint8 \
+                        or int(got.max()) >= cfg.num_classes:
+                    raise AssertionError(f"[{dtype}, {mode}] masks {got.shape} "
+                                         f"{got.dtype} max {got.max()}, want {want.shape}")
+            agree = [float((g == w).mean()) for g, w in zip(masks[mode], single)]
+            print(f"[{dtype}, {mode}] served vs stream_video, per session: "
+                  + " ".join(f"{x:.6f}" for x in agree) + f"; bar {bar:.6f}")
+            if min(agree) < bar:
+                raise AssertionError(f"[{dtype}, {mode}] agreement with stream_video "
+                                     f"{min(agree)} < {bar}")
+        agree = [float((a == b).mean()) for a, b in zip(masks["chain"], masks["monolith"])]
+        print(f"[{dtype}] chain vs monolith served masks, per session: "
+              + " ".join(f"{a:.6f}" for a in agree) + f"; bar {bar:.6f}")
+        if min(agree) < bar:
+            raise AssertionError(f"[{dtype}] chain vs monolith agreement {min(agree)} < {bar}")
+    os.environ.pop("GDKVM_GDR_FWD")
+    return {"chain_launches": chain_launches, "model": models["bfloat16"]}
+
+
+def _bench_sessions(addr, sessions: int, frames: int, per_request: int) -> dict:
+    """``gdkvm serve-bench``'s probe (gdkvm_tpu/cli.py): ``sessions``
+    clients at once, each streaming ``frames`` frames in requests of
+    ``per_request`` frames (videos made before the clock starts); the host
+    time of every request, submit to masks, and frames/s over the wall
+    time."""
+    import numpy as np
+    from gdkvm_tpu_torch.serve import ServeClient
+    size = SERVE["image_size"]
+    n_req = frames // per_request
+
+    def run(i):
+        rng = np.random.default_rng(200 + i)
+        vids = [rng.integers(0, 256, (per_request, size, size, 1), np.uint8)
+                for _ in range(min(n_req, 4))]
+        client = ServeClient(*addr)
+        client.open()
+        lat = []
+        try:
+            for j in range(n_req):
+                t0 = time.perf_counter()
+                masks = client.infer(vids[j % len(vids)])
+                lat.append(time.perf_counter() - t0)
+                if masks.shape != (per_request, size, size):
+                    raise AssertionError(f"masks {masks.shape}")
+        finally:
+            client.close()
+        return lat
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=sessions) as pool:
+        lats = [x for lat in pool.map(run, range(sessions)) for x in lat]
+    wall = time.perf_counter() - t0
+    ms = np.array(lats) * 1e3
+    return {"frames_per_sec": sessions * frames / wall, "requests": len(lats),
+            **{f"p{q}_ms": float(np.percentile(ms, q)) for q in (50, 95, 99)}}
+
+
+# (name, frames per request, frames per session): one chunk per request, the
+# live-scanner pattern; 256-frame requests, the cine-upload pattern.
+SERVE_PATTERNS = (("live 16-frame requests", 16, 512),
+                  ("cine 256-frame requests", 256, 1024))
+
+
+def phase_serve_times(device, model) -> dict:
+    """Serving frames/s and request latency per forward split, in turns
+    (monolith, chain, chain, monolith), 8 sessions at once, for each
+    request pattern; the engine's queue wait and service time per piece,
+    and the peak device memory."""
+    import numpy as np
+    import torch
+    runs = {"monolith": [], "chain": []}
+    with _served(model) as (engine, addr):
+        for mode in ("monolith", "chain", "chain", "monolith"):
+            os.environ["GDKVM_GDR_FWD"] = mode
+            _bench_sessions(addr, 8, 64, 16)               # warm, untimed
+            engine.drain_stats()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(device)
+            for name, per_request, frames in SERVE_PATTERNS:
+                r = _bench_sessions(addr, 8, frames, per_request)
+                wait, service, _ = np.array(engine.drain_stats()).T
+                r.update({f"{what}_ms_p{q}": float(np.percentile(x, q))
+                          for what, x in (("wait", wait), ("service", service))
+                          for q in (50, 99)})
+                runs[mode].append((name, r))
+                print(f"serve [{mode}] {name}: {r['frames_per_sec']:.1f} frames/s, "
+                      f"{r['requests']} requests, latency p50 {r['p50_ms']:.3f} "
+                      f"p95 {r['p95_ms']:.3f} p99 {r['p99_ms']:.3f} ms; per piece "
+                      f"queue wait p50 {r['wait_ms_p50']:.3f} p99 {r['wait_ms_p99']:.3f}, "
+                      f"service p50 {r['service_ms_p50']:.3f} p99 "
+                      f"{r['service_ms_p99']:.3f} ms")
+            print(f"serve [{mode}] peak device memory "
+                  f"{torch.cuda.max_memory_allocated(device) / 2**20:.1f} MiB; "
+                  f"stats dropped {engine.stats_dropped}")
+    os.environ.pop("GDKVM_GDR_FWD")
+    for mode, rs in runs.items():
+        for name, _, _ in SERVE_PATTERNS:
+            fps = [r["frames_per_sec"] for n, r in rs if n == name]
+            print(f"serve [{mode}] {name}: mean of {len(fps)} turns "
+                  f"{statistics.mean(fps):.1f} frames/s")
+    return runs
+
+
+def phase_chain_train(device) -> int:
+    """Training with GDKVM_GDR_FWD=chain: ``train(cfg, max_steps)`` on the
+    ts8_256 recipe under the stored and the fused backward, counts 0 just
+    before and read just after; then one step's loss and gradient norm in
+    fp32 compute, chain against monolith, from the same weights and batch.
+    Returns the chain launches of the two training runs."""
+    import dataclasses
+    import math
+    from gdkvm_tpu_torch.models.gdkvm import train_model_config
+    from gdkvm_tpu_torch.train.loop import global_norm, loss_and_grads, train
+    cfg = _train_cfg()
+    os.environ["GDKVM_GDR_FWD"] = "chain"
+    launches = 0
+    for mode in ("stored", "fused"):
+        os.environ["GDKVM_GDR_BWD"] = mode
+        _reset_counts()
+        metrics = train(cfg, max_steps=TRAIN_STEPS, device=device)
+        counts = _read_counts()
+        print(f"training [chain, {mode}]: counts {counts}; last metrics "
+              + " ".join(f"{k} {v:.6f}" for k, v in metrics.items()))
+        want = dict(_ZERO, chain_kernel=TRAIN_STEPS, residual_fwd=TRAIN_STEPS,
+                    bwd_kernel=TRAIN_STEPS if mode == "fused" else 0,
+                    stored_bwd=TRAIN_STEPS if mode == "stored" else 0)
+        if counts != want:
+            raise AssertionError(f"training counts [chain, {mode}] {counts}, expected {want}")
+        if not all(math.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f"non-finite training metrics {metrics}")
+        launches += counts["chain_kernel"]
+
+    batch = _batch(cfg)
+    mcfg = dataclasses.replace(train_model_config(cfg.model, 256),
+                               compute_dtype="float32")
+    weights, runs = None, {}
+    for fwd in ("monolith", "chain"):
+        for mode in ("stored", "fused"):
+            os.environ["GDKVM_GDR_FWD"], os.environ["GDKVM_GDR_BWD"] = fwd, mode
+            state = _state(cfg, mcfg, device, weights)
+            weights = weights or state.model.state_dict()
+            metrics, grads = loss_and_grads(state, batch, cfg)
+            runs[fwd, mode] = (metrics["loss"].item(), global_norm(grads).item())
+    os.environ.pop("GDKVM_GDR_FWD")
+    os.environ.pop("GDKVM_GDR_BWD")
+    bar = STEP_REL["float32"]
+    for mode in ("stored", "fused"):
+        (l_c, g_c), (l_m, g_m) = runs["chain", mode], runs["monolith", mode]
+        d_loss, d_norm = abs(l_c - l_m) / abs(l_m), abs(g_c - g_m) / abs(g_m)
+        print(f"[float32, {mode}] chain vs monolith one step: loss {l_c:.6f} vs "
+              f"{l_m:.6f}, grad_norm {g_c:.6f} vs {g_m:.6f}; |Δloss|/loss "
+              f"{d_loss:.3e}, |Δgrad_norm|/grad_norm {d_norm:.3e} (bar {bar:g})")
+        if not (d_loss <= bar and d_norm <= bar):
+            raise AssertionError(f"[{mode}] chain step disagrees with monolith")
+    return launches
+
+
+def phase_chain_times(device) -> dict:
+    """The chain kernel against gdr_chain, and the chain split (batched
+    solve + kernel) against the monolith kernel, at the serving shape
+    (residual-free) and at the training shape (with the stored backward's
+    residuals), timed in turns."""
+    import torch
+    from gdkvm_tpu_torch.core import gdr
+    from gdkvm_tpu_torch.ops import gdr_cuda
+    gen = torch.Generator(device=device).manual_seed(6)
+    out = {}
+    for name, shape, save in (("serve", SERVE_SHAPE, False), ("train", TRAIN_SHAPE, True)):
+        q, k, v, beta, alpha, s0 = _gdr_inputs(gen, *shape, torch.bfloat16, device)
+        u, w = gdr_cuda._wy(k, v, beta, None)
+        k_ms, p_ms, spread = _in_turns(
+            lambda: gdr.gdr_chain(q, k, u, w, alpha, s0, save_states=save),
+            lambda: gdr_cuda.gdr_chain_cuda(q, k, u, w, alpha, s0, save_states=save))
+        solve_ms = statistics.median(_times_ms(lambda: gdr_cuda._wy(k, v, beta, None)))
+        split = lambda: gdr_cuda.gdr_chain_cuda(q, k, *gdr_cuda._wy(k, v, beta, None),
+                                                alpha, s0, save_states=save)
+        mono = ((lambda: gdr_cuda.gdr_fwd_cuda_residuals(q, k, v, beta, alpha, s0))
+                if save else (lambda: gdr_cuda.gdr_fwd_cuda(q, k, v, beta, alpha, s0)))
+        s_ms, m_ms, s_spread = _in_turns(mono, split)
+        b, h, t, n, dk, dv = shape
+        what = "with S_{t-1}, U, W" if save else "residual-free"
+        print(f"GDR chain kernel [{name}] B={b} H={h} T={t} N={n} d={dk} bf16 q/k, "
+              f"{what}: kernel {k_ms:.4f} ms, plain (gdr_chain) {p_ms:.4f} ms ({spread})")
+        print(f"GDR forward split [{name}], {what}: chain split {s_ms:.4f} ms "
+              f"(batched solve alone {solve_ms:.4f} ms), monolith kernel "
+              f"{m_ms:.4f} ms ({s_spread})")
+        out[name] = {"kernel": (k_ms, p_ms), "split": (s_ms, m_ms), "solve": solve_ms}
+    return out
+
+
 def main() -> int:
     info = phase_device()
     import torch
@@ -625,16 +1061,22 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda:0")
     os.environ.pop("GDKVM_GDR_BWD", None)
+    os.environ.pop("GDKVM_GDR_FWD", None)
     phase_build()
     err_fwd = phase_kernel_vs_plain(device)
     err_res, err_bwd = phase_residuals_and_bwd(device)
     phase_fused_vs_stored(device)
+    err_chain = phase_chain_vs_plain(device)
     stream = phase_model(device)
+    serve = phase_serve(device)
     train_launches = phase_train(device)
+    chain_train_launches = phase_chain_train(device)
     phase_train_grads(device)
     phase_train_times(device)
+    phase_serve_times(device, serve["model"])
     fwd_ms, fwd_plain_ms = phase_gdr_times(device)
     times = phase_train_kernel_times(device)
+    chain_times = phase_chain_times(device)
     src = "gdkvm_tpu_torch/csrc/"
     print(json.dumps({"kernels": [
         {"name": "gdr_fwd", "route": "cuda", "source": src + "gdr_fwd.cu",
@@ -649,6 +1091,11 @@ def main() -> int:
          "replaces": "gdkvm_tpu/ops/gdr_pallas.py:724",
          "launches": train_launches["bwd"], "max_abs_err": err_bwd,
          "ms": times["bwd"][0], "plain_ms": times["bwd"][1]},
+        {"name": "gdr_chain", "route": "cuda", "source": src + "gdr_chain.cu",
+         "replaces": "gdkvm_tpu/ops/gdr_pallas.py:585",
+         "launches": serve["chain_launches"] + chain_train_launches,
+         "max_abs_err": err_chain, "ms": chain_times["serve"]["kernel"][0],
+         "plain_ms": chain_times["serve"]["kernel"][1]},
     ]}))
     print(f"card: {info['smi']}")
     print(json.dumps({"ok": True, "device": {

@@ -5,8 +5,9 @@
 copy exists because the port must import without JAX or yaml.
 ``DataConfig`` and ``TrainConfig`` carry the fields of the JAX package's
 that the port's training step reads, with the same defaults; ``Config``
-holds the three.  The card host has no yaml, so the documented recipe the
-port trains is a function, :func:`ts8_256`, held to its YAML file by a test.
+holds the three.  The card host has no yaml, so the documented configs the
+port runs are functions, :func:`ts8_256` (training) and :func:`ts8_112`
+(serving), each held to its YAML file by a test.
 """
 
 from __future__ import annotations
@@ -86,16 +87,34 @@ class Config:
     train: TrainConfig = field(default_factory=TrainConfig)
 
 
+def _ts8_model() -> ModelConfig:
+    """The ts8 model of both ts8 configs, 4 classes."""
+    return ModelConfig(num_classes=4, in_channels=1,
+                       enc_channels=(64, 64, 128, 192), enc_blocks=(1, 1, 2, 2),
+                       kpff_channels=(128, 96), num_heads=4, head_dim_k=64,
+                       head_dim_v=64)
+
+
+def ts8_112() -> Config:
+    """configs/gdkvm_ts8_112.yaml: the ts8 model, 4 classes (masks pack at
+    2 bits), at 112² on synthetic clips of difficulty 0.7, batch 8, lr
+    1e-4, 3000 iterations, clip 10, bootstrapped CE at 0.15.  The serving
+    model of ``chip_smoke.py``."""
+    return Config(
+        model=_ts8_model(),
+        data=DataConfig(dataset="synthetic", image_size=112, clip_len=10,
+                        augment=True, synth_difficulty=0.7),
+        train=TrainConfig(batch_size=8, learning_rate=1.0e-4,
+                          num_iterations=3000, bootstrap_ratio=0.15))
+
+
 def ts8_256() -> Config:
     """configs/gdkvm_ts8_256.yaml, the documented CAMUS recipe (256², batch
     8, lr 1e-4, 3000 iterations, clip 10) on the ts8 model, 4 classes, with
     bootstrapped CE at 0.15.  The data location is left out: the port reads
     synthetic clips only."""
     return Config(
-        model=ModelConfig(num_classes=4, in_channels=1,
-                          enc_channels=(64, 64, 128, 192),
-                          enc_blocks=(1, 1, 2, 2), kpff_channels=(128, 96),
-                          num_heads=4, head_dim_k=64, head_dim_v=64),
+        model=_ts8_model(),
         data=DataConfig(dataset="camus", image_size=256, clip_len=10),
         train=TrainConfig(batch_size=8, learning_rate=1.0e-4,
                           num_iterations=3000, bootstrap_ratio=0.15))

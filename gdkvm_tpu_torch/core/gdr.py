@@ -16,6 +16,9 @@ Port of gdkvm_tpu/core/gdr.py.  Per (batch, head) the state
   :func:`gdr_chunked_residuals` also returns the backward's residuals
   (S_{t-1} per frame, each frame's WY solve U, W), the plain version of the
   kernel's residual outputs.
+- :func:`gdr_chain` — the per-frame chain alone, given the batched solves'
+  U and W: the plain version of the CUDA chain kernel
+  (``GDKVM_GDR_FWD=chain``).
 - :func:`gdr_bwd_ref` — the backward as a reverse scan applying
   :func:`frame_adjoint` frame by frame: the plain version of the CUDA
   backward kernel.  :func:`gdr_bwd_stored` — the same adjoint from the
@@ -48,9 +51,11 @@ class CallCount:
         self.n = 0
 
 
-# Calls of the plain chunked forward (gdr_chunked, gdr_chunked_residuals);
-# the kernels' launches are counted in ops/gdr_cuda.py.
+# Calls of the plain chunked forward (gdr_chunked, gdr_chunked_residuals)
+# and of the plain chain (gdr_chain); the kernels' launches are counted in
+# ops/gdr_cuda.py.
 CHUNKED_CALLS = CallCount()
+CHAIN_CALLS = CallCount()
 
 
 def _f32(x: Tensor) -> Tensor:
@@ -101,6 +106,37 @@ def solve_unit_lower_t(a: Tensor, rhs: Tensor) -> Tensor:
                                          upper=True, unitriangular=True)
 
 
+def _chain_loop(q: Tensor, k: Tensor, u: Tensor, w: Tensor, alpha: Tensor,
+                s0: Tensor, save_states: bool
+                ) -> Tuple[Tensor, Tensor, Optional[Tensor]]:
+    q, k, u, w, alpha = map(_f32, (q, k, u, w, alpha))
+    s = _f32(s0)
+    outs, states = [], []
+    for t in range(q.shape[2]):
+        states.append(s)
+        s = alpha[:, :, t, None, None] * s
+        outs.append(q[:, :, t] @ s)
+        s = s + k[:, :, t].transpose(-1, -2) @ (u[:, :, t] - w[:, :, t] @ s)
+    return (torch.stack(outs, dim=2), s,
+            torch.stack(states, dim=2) if save_states else None)
+
+
+def gdr_chain(q: Tensor, k: Tensor, u: Tensor, w: Tensor, alpha: Tensor,
+              s0: Tensor, save_states: bool = False
+              ) -> Tuple[Tensor, Tensor, Optional[Tensor]]:
+    """The state chain alone, given each frame's WY solve: per frame
+    ``S̃ = α_t S;  O_t = Q_t S̃;  S ← S̃ + K_tᵀ (U_t − W_t S̃)``.
+
+    u (B, H, T, N, d_v) and w (…, N, d_k) come from :func:`wy_transform`.
+    → (o, s_T, states): ``states`` (B, H, T, d_k, d_v) holds S_{t-1} of
+    every frame, before its decay, or None without ``save_states``.  All
+    fp32.  It is the plain version of the CUDA chain kernel
+    (``csrc/gdr_chain.cu``, the port of the Pallas ``_gdr_chain_kernel``).
+    """
+    CHAIN_CALLS.n += 1
+    return _chain_loop(q, k, u, w, alpha, s0, save_states)
+
+
 def gdr_chunked_residuals(q: Tensor, k: Tensor, v: Tensor, beta: Tensor,
                           alpha: Tensor, s0: Tensor,
                           eta: Optional[Tensor] = None
@@ -110,19 +146,13 @@ def gdr_chunked_residuals(q: Tensor, k: Tensor, v: Tensor, beta: Tensor,
     → (o, s_T, states, u, w): ``states`` (B, H, T, d_k, d_v) holds S_{t-1}
     for every frame, before its decay; ``u`` (…, N, d_v) and ``w``
     (…, N, d_k) are each frame's WY solve.  All fp32.  It is the plain
-    version of the CUDA forward kernel with its residual outputs.
+    version of the CUDA forward kernel with its residual outputs: the
+    batched solves, then the chain of :func:`gdr_chain`.
     """
     CHUNKED_CALLS.n += 1
     u, w = wy_transform(k, v, beta, eta)            # (B,H,T,N,dv), (…,dk)
-    q, k, alpha = _f32(q), _f32(k), _f32(alpha)
-    s = _f32(s0)
-    outs, states = [], []
-    for t in range(q.shape[2]):
-        states.append(s)
-        s = alpha[:, :, t, None, None] * s
-        outs.append(q[:, :, t] @ s)
-        s = s + k[:, :, t].transpose(-1, -2) @ (u[:, :, t] - w[:, :, t] @ s)
-    return torch.stack(outs, dim=2), s, torch.stack(states, dim=2), u, w
+    o, s_t, states = _chain_loop(q, k, u, w, alpha, s0, True)
+    return o, s_t, states, u, w
 
 
 def gdr_chunked(q: Tensor, k: Tensor, v: Tensor, beta: Tensor, alpha: Tensor,

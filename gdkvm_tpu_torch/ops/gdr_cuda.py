@@ -4,24 +4,35 @@
   ``csrc/gdr_fwd.cu``, the port of the Pallas TPU kernel ``_gdr_kernel``
   (gdkvm_tpu/ops/gdr_pallas.py), without or with its residual outputs
   (S_{t-1} per frame; the frame's WY solve U, W).
+- :func:`gdr_chain_cuda` launches ``csrc/gdr_chain.cu``, the port of
+  ``_gdr_chain_kernel``: the per-frame chain alone, given every frame's WY
+  solve U, W from one batched solve (``core.gdr.wy_transform``), with
+  S_{t-1} per frame on request.
 - :func:`gdr_bwd_cuda` launches ``csrc/gdr_bwd.cu``, the port of
   ``_gdr_bwd_kernel``: the reverse scan with dS on chip.
+- ``GDKVM_GDR_FWD`` picks the forward split, as in the JAX package:
+  ``monolith`` (default; ``gdr_fwd.cu`` solves inside the scan) or
+  ``chain`` (the batched solve, then ``gdr_chain.cu``).  It is read each
+  time a forward runs; the JAX package reads it once, at import.
 - :class:`GDRFunction` makes the kernel route differentiable, with the
   three backward modes of the JAX package's ``gdr_pallas_bh`` custom VJP,
   chosen by ``GDKVM_GDR_BWD`` when the forward runs:
 
-  - ``stored`` (default): forward kernel with S_{t-1}, U, W →
+  - ``stored`` (default): forward with S_{t-1}, U, W →
     ``core.gdr.gdr_bwd_stored``, plain torch ops batched over all frames
     (the JAX package runs this adjoint in XLA, not in a kernel);
-  - ``fused``: forward kernel with S_{t-1} → the backward kernel;
-  - ``recompute``: residual-free forward kernel → autograd through
+  - ``fused``: forward with S_{t-1} → the backward kernel;
+  - ``recompute``: residual-free forward → autograd through
     ``core.gdr.gdr_chunked``.
+
+  In chain mode U and W come from the batched solve and the chain kernel
+  writes S_{t-1}.
 
 - :func:`gdr_kernel` is ``gdr_impl="pallas"``: the kernels, or raise.
   :func:`gdr_fwd` is ``gdr_impl="auto"``: the kernels for CUDA tensors, the
   plain ``core.gdr.gdr_chunked`` for CPU tensors.  When no input needs a
-  gradient (``torch.no_grad``, ``inference_mode``) both launch the
-  residual-free forward kernel once.  A CUDA tensor never takes a plain
+  gradient (``torch.no_grad``, ``inference_mode``) both launch one
+  residual-free forward kernel.  A CUDA tensor never takes a plain
   version of a kernel: the kernel launches or the call raises.
 
 Shapes as in ``core/gdr.py``: q, k (B, H, T, N, d_k); v (B, H, T, N, d_v);
@@ -44,12 +55,20 @@ from gdkvm_tpu_torch.ops import _build
 Tensor = torch.Tensor
 
 # Launches of each CUDA kernel (counted where it launches, and nowhere else).
-LAUNCHES = gdr.CallCount()       # gdr_fwd.cu, with or without residuals
-BWD_LAUNCHES = gdr.CallCount()   # gdr_bwd.cu
+LAUNCHES = gdr.CallCount()        # gdr_fwd.cu, with or without residuals
+CHAIN_LAUNCHES = gdr.CallCount()  # gdr_chain.cu, with or without S_{t-1}
+BWD_LAUNCHES = gdr.CallCount()    # gdr_bwd.cu
+# Of the forward launches above (either kernel), those that wrote the
+# backward's residuals: an inference path shows 0 here.
+RESIDUAL_LAUNCHES = gdr.CallCount()
 
 # Dynamic shared memory one block may use on Hopper (227 KB).
 SMEM_LIMIT_BYTES = 232_448
 PANEL = 32    # rows per panel of the blocked solves (csrc/gdr_panel.cuh)
+# The largest d_k the chain kernel's registers hold (kMaxDk in
+# csrc/gdr_chain.cu); its shared memory (~31 KB at d_k=64) does not grow
+# with N.
+CHAIN_MAX_DK = 128
 
 
 def _panel_floats(dk: int, m: int) -> int:
@@ -106,6 +125,19 @@ def _lib() -> ctypes.CDLL:
     lib.gdr_fwd_smem_bytes.restype = size
     lib.gdr_fwd_uses_panels.argtypes = [i, i, i]
     lib.gdr_fwd_uses_panels.restype = i
+    return lib
+
+
+@functools.cache
+def _chain_lib() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(_build.build("gdr_chain")))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.gdr_chain.argtypes = [p] * 9 + [i] * 7 + [p]
+    lib.gdr_chain.restype = i
+    lib.gdr_chain_error_string.argtypes = [i]
+    lib.gdr_chain_error_string.restype = ctypes.c_char_p
+    lib.gdr_chain_max_dk.argtypes = []
+    lib.gdr_chain_max_dk.restype = i
     return lib
 
 
@@ -188,6 +220,7 @@ def _launch_fwd(q: Tensor, k: Tensor, v: Tensor, beta: Tensor, alpha: Tensor,
         raise RuntimeError(f"gdr_fwd launch failed: CUDA error {err} "
                            f"({lib.gdr_error_string(err).decode()})")
     LAUNCHES.n += 1
+    RESIDUAL_LAUNCHES.n += save_states or save_uw
     return o, s_t, states, u, w
 
 
@@ -211,6 +244,54 @@ def gdr_fwd_cuda_residuals(q: Tensor, k: Tensor, v: Tensor, beta: Tensor,
     u, w the frame's WY solve, or None without ``save_uw``.  All fp32.
     Its plain version is ``core.gdr.gdr_chunked_residuals``."""
     return _launch_fwd(q, k, v, beta, alpha, s0, eta, True, save_uw)
+
+
+def gdr_chain_cuda(q: Tensor, k: Tensor, u: Tensor, w: Tensor, alpha: Tensor,
+                   s0: Tensor, *, save_states: bool
+                   ) -> Tuple[Tensor, Tensor, Optional[Tensor]]:
+    """Launch the CUDA chain kernel → (o, s_T, states): ``states`` (B, H,
+    T, d_k, d_v) = S_{t-1} per frame before its decay, or None without
+    ``save_states``.  q, k (B, H, T, N, d_k) bf16 or fp32; u (…, N, d_v)
+    and w (…, N, d_k) fp32 from ``core.gdr.wy_transform``.  Raises on a
+    CPU tensor, on a shape, dtype or layout it does not take, and on a
+    failed launch.  Its plain version is ``core.gdr.gdr_chain``."""
+    if not q.is_cuda:
+        raise ValueError(f"gdr_chain_cuda takes CUDA tensors, got q on {q.device}")
+    if q.dim() != 5 or u.dim() != 5:
+        raise ValueError("q, k, u, w must be (B, H, T, N, d)")
+    b, h, t, n, dk = q.shape
+    dv = u.shape[-1]
+    dev = q.device
+    _check("q", q, (b, h, t, n, dk), (torch.float32, torch.bfloat16), dev)
+    _check("k", k, (b, h, t, n, dk), (q.dtype,), dev)
+    _check("u", u, (b, h, t, n, dv), (torch.float32,), dev)
+    _check("w", w, (b, h, t, n, dk), (torch.float32,), dev)
+    _check("alpha", alpha, (b, h, t), (torch.float32,), dev)
+    _check("s0", s0, (b, h, dk, dv), (torch.float32,), dev)
+    if min(b, h, t, n, dk, dv) < 1:
+        raise ValueError(f"empty GDR input: q {tuple(q.shape)}, u {tuple(u.shape)}")
+    if dk > CHAIN_MAX_DK:
+        raise ValueError(f"the chain kernel takes d_k <= {CHAIN_MAX_DK}, got {dk}")
+
+    lib = _chain_lib()
+    f32 = dict(dtype=torch.float32, device=dev)
+    o = torch.empty((b, h, t, n, dv), **f32)
+    s_t = torch.empty((b, h, dk, dv), **f32)
+    states = torch.empty((b, h, t, dk, dv), **f32) if save_states else None
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.gdr_chain(q.data_ptr(), k.data_ptr(), u.data_ptr(),
+                            w.data_ptr(), alpha.data_ptr(), s0.data_ptr(),
+                            o.data_ptr(), s_t.data_ptr(),
+                            None if states is None else states.data_ptr(),
+                            b, h, t, n, dk, dv, int(q.dtype == torch.bfloat16),
+                            stream)
+    if err != 0:
+        raise RuntimeError(f"gdr_chain launch failed: CUDA error {err} "
+                           f"({lib.gdr_chain_error_string(err).decode()})")
+    CHAIN_LAUNCHES.n += 1
+    RESIDUAL_LAUNCHES.n += save_states
+    return o, s_t, states
 
 
 def gdr_bwd_cuda(q: Tensor, k: Tensor, v: Tensor, beta: Tensor, eta: Tensor,
@@ -267,6 +348,34 @@ def _bwd_mode() -> str:
     return mode
 
 
+def _fwd_mode() -> str:
+    """``GDKVM_GDR_FWD``: monolith (default) | chain, read each time a
+    forward runs."""
+    mode = os.environ.get("GDKVM_GDR_FWD", "monolith")
+    if mode not in ("chain", "monolith"):
+        raise ValueError(f"GDKVM_GDR_FWD must be chain|monolith, got {mode!r}")
+    return mode
+
+
+def _wy(k: Tensor, v: Tensor, beta: Tensor, eta: Optional[Tensor]
+        ) -> Tuple[Tensor, Tensor]:
+    """All frames' WY solves in one batched call (the chain split's first
+    step; the JAX package's ``_wy_uw_bh``), contiguous for the kernel."""
+    u, w = gdr.wy_transform(k, v, beta, eta)
+    return u.contiguous(), w.contiguous()
+
+
+def _fwd_no_residuals(q: Tensor, k: Tensor, v: Tensor, beta: Tensor,
+                      alpha: Tensor, s0: Tensor, eta: Optional[Tensor]
+                      ) -> Tuple[Tensor, Tensor]:
+    """One residual-free forward launch in the ``GDKVM_GDR_FWD`` split."""
+    if _fwd_mode() == "chain":
+        o, s_t, _ = gdr_chain_cuda(q, k, *_wy(k, v, beta, eta), alpha, s0,
+                                   save_states=False)
+        return o, s_t
+    return gdr_fwd_cuda(q, k, v, beta, alpha, s0, eta)
+
+
 class GDRFunction(torch.autograd.Function):
     """The kernel route with a gradient.  ``apply(q, k, v, beta, alpha, s0,
     eta)``; ``eta=None`` is the coupled rule (η = β), whose β gradient is
@@ -280,11 +389,18 @@ class GDRFunction(torch.autograd.Function):
         eta_ = beta if eta is None else eta
         ins = (q, k, v, beta, alpha, s0, eta_)
         if mode == "recompute":
-            o, s_t = gdr_fwd_cuda(*ins)
+            o, s_t = _fwd_no_residuals(*ins)
             ctx.save_for_backward(*ins)
         else:
-            o, s_t, states, u, w = gdr_fwd_cuda_residuals(
-                *ins, save_uw=mode == "stored")
+            if _fwd_mode() == "chain":
+                # The stored backward takes U, W from the batched solve, as
+                # the JAX package's does (its inverses are None there).
+                u, w = _wy(k, v, beta, eta_)
+                o, s_t, states = gdr_chain_cuda(q, k, u, w, alpha, s0,
+                                                save_states=True)
+            else:
+                o, s_t, states, u, w = gdr_fwd_cuda_residuals(
+                    *ins, save_uw=mode == "stored")
             res = (states, u, w) if mode == "stored" else (states,)
             ctx.save_for_backward(q, k, v, beta, alpha, eta_, *res)
         return o, s_t
@@ -324,12 +440,12 @@ def gdr_kernel(q: Tensor, k: Tensor, v: Tensor, beta: Tensor, alpha: Tensor,
                ) -> Tuple[Tensor, Tensor]:
     """``gdr_impl="pallas"``: the kernels, differentiable; the launchers
     raise on CPU tensors.  Without a gradient to take, one residual-free
-    launch."""
+    launch of the ``GDKVM_GDR_FWD`` split's kernel."""
     args = tuple(x.contiguous() for x in (q, k, v, beta, alpha, s0))
     eta = None if eta is None else eta.contiguous()
     if _needs_grad(*args, eta):
         return GDRFunction.apply(*args, eta)
-    return gdr_fwd_cuda(*args, eta)
+    return _fwd_no_residuals(*args, eta)
 
 
 def gdr_fwd(q: Tensor, k: Tensor, v: Tensor, beta: Tensor, alpha: Tensor,

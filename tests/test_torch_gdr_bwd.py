@@ -150,12 +150,14 @@ def test_state_carry_gradient_matches_jax():
 
 class _plain_launchers:
     """Swap the Function's kernel launchers for their plain versions (CPU
-    tensors only) and set GDKVM_GDR_BWD; count the launcher calls."""
+    tensors only), set GDKVM_GDR_BWD and GDKVM_GDR_FWD; count the launcher
+    calls ("chain_states": chain launches that save S_{t-1})."""
 
-    def __init__(self, mode: str):
-        self.mode = mode
+    def __init__(self, mode: str, fwd: str = "monolith"):
+        self.mode, self.fwd = mode, fwd
         self.mp = pytest.MonkeyPatch()
-        self.calls = {"fwd": 0, "fwd_residuals": 0, "bwd": 0}
+        self.calls = {"fwd": 0, "fwd_residuals": 0, "chain": 0,
+                      "chain_states": 0, "bwd": 0}
 
     def __enter__(self):
         def fwd(*a):
@@ -167,13 +169,19 @@ class _plain_launchers:
             o, s_t, states, u, w = gdr.gdr_chunked_residuals(*a)
             return (o, s_t, states, u, w) if save_uw else (o, s_t, states, None, None)
 
+        def chain(*a, save_states):
+            self.calls["chain_states" if save_states else "chain"] += 1
+            return gdr.gdr_chain(*a, save_states=save_states)
+
         def bwd(*a):
             self.calls["bwd"] += 1
             return gdr.gdr_bwd_ref(*a)
 
         self.mp.setenv("GDKVM_GDR_BWD", self.mode)
+        self.mp.setenv("GDKVM_GDR_FWD", self.fwd)
         self.mp.setattr(gdr_cuda, "gdr_fwd_cuda", fwd)
         self.mp.setattr(gdr_cuda, "gdr_fwd_cuda_residuals", fwd_residuals)
+        self.mp.setattr(gdr_cuda, "gdr_chain_cuda", chain)
         self.mp.setattr(gdr_cuda, "gdr_bwd_cuda", bwd)
         return self
 
@@ -181,10 +189,12 @@ class _plain_launchers:
         self.mp.undo()
 
 
+_NO_CALLS = {"fwd": 0, "fwd_residuals": 0, "chain": 0, "chain_states": 0,
+             "bwd": 0}
 # For each mode, the launcher calls of one forward and one backward.
-MODE_CALLS = {"stored": {"fwd": 0, "fwd_residuals": 1, "bwd": 0},
-              "fused": {"fwd": 0, "fwd_residuals": 1, "bwd": 1},
-              "recompute": {"fwd": 1, "fwd_residuals": 0, "bwd": 0}}
+MODE_CALLS = {"stored": dict(_NO_CALLS, fwd_residuals=1),
+              "fused": dict(_NO_CALLS, fwd_residuals=1, bwd=1),
+              "recompute": dict(_NO_CALLS, fwd=1)}
 
 
 @pytest.mark.parametrize("coupled", [True, False], ids=["coupled", "decoupled"])
@@ -253,12 +263,12 @@ def test_no_residuals_without_grad():
             gdr_cuda.gdr_kernel(*args)
         with torch.inference_mode():
             gdr_cuda.gdr_kernel(*args)
-        assert pl.calls == {"fwd": 2, "fwd_residuals": 0, "bwd": 0}
+        assert pl.calls == dict(_NO_CALLS, fwd=2)
         o, s = gdr_cuda.gdr_kernel(*args)
         assert o.requires_grad and s.requires_grad
-        assert pl.calls == {"fwd": 2, "fwd_residuals": 1, "bwd": 0}
+        assert pl.calls == dict(_NO_CALLS, fwd=2, fwd_residuals=1)
         gdr_cuda.gdr_kernel(*(x.detach() for x in args))
-        assert pl.calls == {"fwd": 3, "fwd_residuals": 1, "bwd": 0}
+        assert pl.calls == dict(_NO_CALLS, fwd=3, fwd_residuals=1)
 
 
 def test_bwd_mode_validation(monkeypatch):
