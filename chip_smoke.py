@@ -5,9 +5,11 @@
 Phases, each of which fails the run (nonzero exit) when it fails:
 
 1. device and versions (torch, CUDA, nvcc, the card's name and power limit);
-2. build the GDR kernels (``gdkvm_tpu_torch/csrc/gdr_fwd.cu``,
-   ``gdr_bwd.cu`` and ``gdr_chain.cu``) with nvcc from the checkout's
-   sources, in parallel;
+2. build the GDR kernels (``gdkvm_tpu_torch/csrc/gdr_fwd.cu``, which
+   holds the forward's solve and the chain of ``gdr_chain.cuh``, and
+   ``gdr_bwd.cu``) with nvcc from the checkout's sources, in parallel,
+   print nvcc's ptxas report of each (registers, spills, shared memory)
+   and hold the wrappers' launch plans to the sources';
 3. each kernel against its plain PyTorch version on identical inputs: the
    forward without residuals at the streaming shapes, the forward with its
    residuals (S_{t-1}, U, W) and the backward at the training shape (B=8
@@ -15,7 +17,9 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    stored gradients through the autograd Function; the chain kernel
    against ``gdr_chain`` at the serving shapes (B=8 H=4 T=16 and 32 N=49),
    the training shape, N=7, d_k≠d_v and T=1, chained calls, and the chain
-   split (batched solve + kernel) against the monolith kernel;
+   split (batched solve + kernel) against the monolith kernel; the
+   forward's WY solve kernel, through the U, W the forward returns,
+   against the batched solve;
 4. streaming (the first main path): the ts8 model at full width streams
    8 × 32-frame chunks at 112² with the state carried, through the forward
    kernel; launches are counted and the result held against the plain GDR;
@@ -36,8 +40,13 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    paths; serving frames/s, request latency p50/p95/p99 (16- and 256-frame
    requests), queue wait and service time and peak memory per forward
    split, in turns; each kernel against its plain version at its main
-   path's shape, and the chain split against the monolith kernel at the
-   serving and the training shape, timed in turns.
+   path's shape and the chain split against the monolith kernel at the
+   serving and the training shape, timed in turns on the device alone
+   (CUDA events); the WY solve kernel inside the forward against the
+   batched solve, by torch.profiler's device time; each beside its bound
+   (operations on fp32 FMAs at 67 TFLOP/s plus 3xTF32 passes on the
+   tensor cores at 495, or bytes at 3.35 TB/s, whichever is longer) and
+   its share of it.
 
 The line before the last is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
@@ -62,6 +71,13 @@ def _sh(cmd: list[str]) -> str:
     return res.stdout.strip()
 
 
+# Cycles the stream spins (torch.cuda._sleep, ~5 ms) before each timed call,
+# so that the host enqueues the start event, the call's launches and the
+# end event while the card is still busy: the events then time the device,
+# not the wrapper's host path (tens of µs, as long as the new kernels).
+CUSHION_CYCLES = 10_000_000
+
+
 def _times_ms(fn, iters: int = 20, warmup: int = 3) -> list[float]:
     """Device times of ``iters`` calls of ``fn()`` (CUDA events), in ms."""
     import torch
@@ -71,6 +87,7 @@ def _times_ms(fn, iters: int = 20, warmup: int = 3) -> list[float]:
     for _ in range(iters):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(CUSHION_CYCLES)
         start.record()
         fn()
         end.record()
@@ -116,6 +133,81 @@ def _abs(got, want) -> float:
     return (got - want).abs().max().item()
 
 
+# Published dense peaks of one H100 SXM at its 700 W limit (NVIDIA's data
+# sheet): fp32 FMAs outside the tensor cores, TF32 on the tensor cores, and
+# HBM3.
+PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
+PEAK_BYTES_PER_S = 3.35e12
+
+# Operations of a kernel by the unit that does them: (flops on fp32 FMAs,
+# flops on the tensor cores counted once per TF32 pass).  A product runs on
+# the tensor cores in 3xTF32 (csrc/gdr_mma.cuh): three passes, one fewer for
+# each operand exact in TF32 (a bf16 q or k), so A = ηKKᵀ of bf16 K is one.
+
+
+def _passes(exact_a: bool, exact_b: bool) -> int:
+    return 3 - exact_a - exact_b
+
+
+def _solve_ops(b, h, t, n, dk, dv, exact: bool) -> tuple[int, int]:
+    """The WY solve of every frame: A (N(N-1)/2 entries of 2 d_k) and the
+    substitution (N(N-1)/2 entries times d_v + d_k columns, 2 each).  In
+    the 16-row block layout both run on the tensor cores (A with K exact
+    when bf16, the substitution on fp32 operands); the 32-row panel layout
+    (large N) runs both on fp32 FMAs.  The 16 × 16 inverses are the
+    design's, not the function's, work and are not counted."""
+    from gdkvm_tpu_torch.ops import gdr_cuda
+    a, subst = b * h * t * n * (n - 1) * dk, b * h * t * n * (n - 1) * (dk + dv)
+    if gdr_cuda.wy_uses_panels(n, dk, dv):
+        return a + subst, 0
+    return 0, a * _passes(exact, exact) + subst * _passes(False, False)
+
+
+def _chain_ops(b, h, t, n, dk, dv, exact: bool) -> tuple[int, int]:
+    """Q S̃, W S̃ and Kᵀ M of every frame (2 N d_k d_v each), on the tensor
+    cores: Q and K exact when bf16, W, S̃ and M fp32."""
+    one = 2 * b * h * t * n * dk * dv
+    return 0, one * (2 * _passes(exact, False) + _passes(False, False))
+
+
+def _fwd_ops(b, h, t, n, dk, dv, exact: bool) -> tuple[int, int]:
+    """The forward: every frame's solve, then the chain."""
+    (fma_s, tc_s), (fma_c, tc_c) = (_solve_ops(b, h, t, n, dk, dv, exact),
+                                    _chain_ops(b, h, t, n, dk, dv, exact))
+    return fma_s + fma_c, tc_s + tc_c
+
+
+def _bwd_ops(b, h, t, n, dk, dv) -> tuple[int, int]:
+    """The reverse scan recomputing each frame's solve, all on fp32 FMAs:
+    A, both solves, dA = stril(Y Xᵀ), dA K and dAᵀ(ηK) (each N(N-1) times
+    d_k or d_v + d_k), and seven N × d_k × d_v products."""
+    return b * h * t * (n * (n - 1) * (3 * dk + 3 * (dk + dv)) + 14 * n * dk * dv), 0
+
+
+def _nbytes(*xs) -> int:
+    """Bytes of the distinct tensors among ``xs``: each input read once and
+    each output written once."""
+    return sum({x.data_ptr(): x.numel() * x.element_size()
+                for x in xs if x is not None}.values())
+
+
+def _bound(label: str, ms: float, ops: tuple[int, int], nbytes: int) -> dict:
+    """The least time the card could take for the work (ms): the larger of
+    the operations, each unit's at its peak (fp32 FMAs at 67 TFLOP/s plus
+    TF32 passes at 495), and the bytes over the memory rate.  Prints it
+    beside the measured time, with what bounds it and the share."""
+    fma, tc = ops
+    t_ops = 1e3 * (fma / PEAK_FP32_FLOPS + tc / PEAK_TF32_FLOPS)
+    t_bytes = 1e3 * nbytes / PEAK_BYTES_PER_S
+    bound, by = max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+    print(f"bound [{label}]: {ms:.4f} ms against {bound:.4f} ms ({fma / 1e9:.3f} "
+          f"GFLOP on fp32 FMAs + {tc / 1e9:.3f} GFLOP of TF32 passes -> {t_ops:.4f} "
+          f"ms; {nbytes / 1e6:.2f} MB -> {t_bytes:.4f} ms; bound by {by}), share "
+          f"{bound / ms:.3f}")
+    return {"ms": ms, "bound_ms": bound, "bound_by": by}
+
+
 # Streaming forward kernel against its plain version: both see identical
 # inputs and both run fp32 math, so they differ only in summation order.
 RTOL, ATOL = 1e-4, 1e-5
@@ -131,7 +223,7 @@ GRAD_CASES = [
     ("train fp32", (2, 4, 10, 256, 64, 64), "float32"),
     ("N=7", (8, 4, 10, 7, 64, 64), "bfloat16"),
     ("N=49", (8, 4, 10, 49, 64, 64), "bfloat16"),
-    ("N=138 (panels)", (2, 2, 3, 138, 64, 64), "float32"),
+    ("N=138", (2, 2, 3, 138, 64, 64), "float32"),
     ("N=301 (largest)", (1, 2, 2, 301, 64, 64), "float32"),
     ("T=1", (8, 4, 1, 256, 64, 64), "bfloat16"),
     ("dk=32 dv=64", (2, 3, 5, 256, 32, 64), "float32"),
@@ -156,13 +248,16 @@ def phase_device() -> dict:
     return {"smi": smi.splitlines()[0]}
 
 
-KERNELS = ("gdr_fwd", "gdr_bwd", "gdr_chain")
+# The libraries: gdr_fwd.cu holds the forward (solve + chain) and the chain
+# alone (csrc/gdr_chain.cuh); gdr_bwd.cu the backward.
+KERNELS = ("gdr_fwd", "gdr_bwd")
 
 
 def phase_build() -> None:
-    """Build the three kernels at once (one nvcc each), then check that the
-    wrappers' shared-memory and scratch sizes and the chain's largest d_k
-    agree with the sources'."""
+    """Build the kernels' libraries at once (one nvcc each) and print nvcc's
+    ptxas report of each (registers, spills, shared memory); then check
+    that the wrappers' launch plans (shared memory, scratch, the chain's
+    columns per block and largest d_k) agree with the sources'."""
     from gdkvm_tpu_torch.ops import _build, gdr_cuda
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(KERNELS)) as pool:
@@ -171,19 +266,27 @@ def phase_build() -> None:
           f"{time.perf_counter() - t0:.1f} s")
     for path in paths:
         print(path.with_suffix(".log").read_text().strip())
-    chain = gdr_cuda._chain_lib()
-    if chain.gdr_chain_max_dk() != gdr_cuda.CHAIN_MAX_DK:
-        raise AssertionError(f"chain max d_k: source {chain.gdr_chain_max_dk()}, "
-                             f"wrapper {gdr_cuda.CHAIN_MAX_DK}")
     fwd, bwd = gdr_cuda._lib(), gdr_cuda._bwd_lib()
+    for what, c_val, py_val in (
+            ("chain max d_k", fwd.gdr_chain_max_dk(), gdr_cuda.CHAIN_MAX_DK),
+            ("chain columns", fwd.gdr_chain_cols(), gdr_cuda.CHAIN_COLS)):
+        if c_val != py_val:
+            raise AssertionError(f"{what}: source {c_val}, wrapper {py_val}")
+    for dk in (8, 32, 40, 64, 128):
+        for bf16 in (0, 1):
+            c_val = fwd.gdr_chain_smem_bytes(dk, bf16)
+            if c_val != gdr_cuda.chain_smem_bytes(dk, bool(bf16)):
+                raise AssertionError(f"chain smem at d_k={dk} bf16={bf16}: source "
+                                     f"{c_val}, wrapper "
+                                     f"{gdr_cuda.chain_smem_bytes(dk, bool(bf16))}")
     for n, dk, dv in ((49, 64, 64), (7, 8, 8), (64, 64, 64), (137, 64, 64),
-                      (138, 64, 64), (256, 64, 64), (256, 32, 64),
-                      (301, 64, 64)):
+                      (157, 64, 64), (158, 64, 64), (256, 64, 64),
+                      (256, 32, 64), (301, 64, 64), (71, 128, 128)):
         pairs = [
-            ("fwd smem", fwd.gdr_fwd_smem_bytes(n, dk, dv),
-             gdr_cuda.smem_bytes(n, dk, dv)),
-            ("fwd panels", fwd.gdr_fwd_uses_panels(n, dk, dv),
-             int(gdr_cuda.fwd_uses_panels(n, dk, dv))),
+            ("solve smem", fwd.gdr_wy_smem_bytes(n, dk, dv),
+             gdr_cuda.wy_smem_bytes(n, dk, dv)),
+            ("solve panels", fwd.gdr_wy_uses_panels(n, dk, dv),
+             int(gdr_cuda.wy_uses_panels(n, dk, dv))),
             ("bwd smem", bwd.gdr_bwd_smem_bytes(n, dk, dv),
              gdr_cuda.bwd_smem_bytes(n, dk, dv)),
             ("bwd scratch", bwd.gdr_bwd_scratch_floats(n, dk, dv),
@@ -212,6 +315,7 @@ def phase_kernel_vs_plain(device) -> float:
         ("N=7", (8, 4, 32, 7, 64, 64), torch.bfloat16),
         ("N=64", (2, 4, 8, 64, 64, 64), torch.float32),
         ("dk=32 dv=64", (2, 3, 5, 49, 32, 64), torch.float32),
+        ("dk=40 dv=10", (2, 3, 5, 49, 40, 10), torch.float32),
     ]
     worst = 0.0
     for name, shape, dtype in cases:
@@ -339,6 +443,9 @@ CHAIN_CASES = [
     ("dk=32 dv=64", (2, 3, 5, 49, 32, 64), "float32", True),
     ("dk=64 dv=40", (2, 3, 5, 49, 64, 40), "float32", True),
     ("T=1", (8, 4, 1, 49, 64, 64), "bfloat16", True),
+    # Rows the tiles' cp.async path does not take (d_k not a multiple of 16,
+    # d_v not of 4): plain loads with zero padding.
+    ("dk=40 dv=10", (2, 3, 5, 49, 40, 10), "bfloat16", True),
 ]
 
 
@@ -363,6 +470,19 @@ def phase_chain_vs_plain(device) -> float:
         worst = max(worst, _check_rel(
             f"chain kernel vs plain [{name}{', states' if save else ''}] {shape} {dt}",
             names, got[:len(names)], want[:len(names)], CHAIN_REL))
+
+    # Operands that start one element past a 16-byte boundary (contiguous
+    # views into a larger buffer): the tiles' plain-load path.
+    def misaligned(x):
+        return torch.empty(x.numel() + 1, dtype=x.dtype, device=device)[1:].view_as(x).copy_(x)
+    q, k, v, beta, alpha, s0 = _gdr_inputs(gen, 2, 3, 5, 49, 64, 64, torch.bfloat16, device)
+    u, w = gdr_cuda._wy(k, v, beta, None)
+    got = gdr_cuda.gdr_chain_cuda(*(misaligned(x) for x in (q, k, u, w)), alpha, s0,
+                                  save_states=True)
+    want = gdr.gdr_chain(q, k, u, w, alpha, s0, save_states=True)
+    torch.cuda.synchronize()
+    worst = max(worst, _check_rel("chain kernel vs plain [misaligned q, k, u, w]",
+                                  ("o", "s_T", "states"), got, want, CHAIN_REL))
 
     # Two chained 8-frame calls with the state carried equal one 16-frame call.
     q, k, v, beta, alpha, s0 = _gdr_inputs(gen, *SERVE_SHAPE, torch.bfloat16, device)
@@ -398,19 +518,59 @@ def phase_chain_vs_plain(device) -> float:
     return worst
 
 
-def phase_gdr_times(device) -> tuple[float, float]:
+# The forward's hand-written WY solve against the chain split's batched
+# solve (_wy, cuBLAS): fp32 both, summation order only.  Each layout and its
+# edge: 16-row blocks to N=157 at d=64, 32-row panels from N=158.
+SOLVE_CASES = [
+    ("serve", SERVE_SHAPE, "bfloat16"),
+    ("stream", (8, 4, 32, 49, 64, 64), "bfloat16"),
+    ("train", TRAIN_SHAPE, "bfloat16"),
+    ("N=7", (2, 2, 3, 7, 64, 64), "float32"),
+    ("N=157 (blocks)", (1, 2, 2, 157, 64, 64), "float32"),
+    ("N=158 (panels)", (1, 2, 2, 158, 64, 64), "float32"),
+    ("N=301", (1, 2, 2, 301, 64, 64), "float32"),
+    ("dk=64 dv=40", (2, 3, 5, 49, 64, 40), "float32"),
+    ("d=128 N=71", (1, 2, 2, 71, 128, 128), "float32"),
+    ("dk=40 dv=10", (2, 3, 5, 49, 40, 10), "bfloat16"),
+]
+
+
+def phase_solve_vs_plain(device) -> float:
+    """The forward's WY solve kernel, through the U, W that the forward
+    returns as residuals, against the batched solve, with decoupled gates;
+    returns the worst absolute error."""
+    import torch
+    from gdkvm_tpu_torch.ops import gdr_cuda
+    gen = torch.Generator(device=device).manual_seed(7)
+    worst = 0.0
+    for name, shape, dt in SOLVE_CASES:
+        q, k, v, beta, alpha, s0 = _gdr_inputs(gen, *shape, getattr(torch, dt), device)
+        eta = torch.sigmoid(torch.randn(beta.shape, device=device, generator=gen))
+        got = gdr_cuda.gdr_fwd_cuda_residuals(q, k, v, beta, alpha, s0, eta)[3:]
+        want = gdr_cuda._wy(k, v, beta, eta)
+        torch.cuda.synchronize()
+        worst = max(worst, _check_rel(f"WY solve kernel vs _wy [{name}] {shape} {dt}",
+                                      ("U", "W"), got, want, FWD_REL))
+    return worst
+
+
+def phase_gdr_times(device) -> dict:
     """Median ms of the forward kernel and of the plain GDR at the streaming
-    bench shape, timed in turns (plain, kernel, kernel, plain)."""
+    bench shape, timed in turns (plain, kernel, kernel, plain), beside the
+    kernel's bound."""
     import torch
     from gdkvm_tpu_torch.core import gdr
     from gdkvm_tpu_torch.ops import gdr_cuda
     gen = torch.Generator(device=device).manual_seed(1)
-    args = _gdr_inputs(gen, 8, 4, 32, 49, 64, 64, torch.bfloat16, device)
+    shape = (8, 4, 32, 49, 64, 64)
+    args = _gdr_inputs(gen, *shape, torch.bfloat16, device)
     kern_ms, plain_ms, spread = _in_turns(lambda: gdr.gdr_chunked(*args),
                                           lambda: gdr_cuda.gdr_fwd_cuda(*args))
     print(f"GDR fwd at B=8 H=4 T=32 N=49 d=64 bf16 q/k/v: kernel "
           f"{kern_ms:.4f} ms, plain {plain_ms:.4f} ms ({spread})")
-    return kern_ms, plain_ms
+    out = gdr_cuda.gdr_fwd_cuda(*args)
+    return dict(_bound("fwd, streaming", kern_ms, _fwd_ops(*shape, exact=True),
+                       _nbytes(*args, *out)), plain_ms=plain_ms)
 
 
 def phase_model(device) -> dict:
@@ -482,7 +642,63 @@ def phase_model(device) -> dict:
     print("streaming frames/s (kernel, plain, kernel, plain): "
           + " ".join(f"{r['frames_per_sec']:.1f}" for r in runs))
     print(f"peak device memory {torch.cuda.max_memory_allocated(device) / 2**20:.1f} MiB")
+    _stream_profile(model, device)
     return {"launches": counts["fwd_kernel"]}
+
+
+def _stream_profile(model, device, warmup: int = 3, chunks: int = 3) -> None:
+    """Where a streamed chunk's device time goes: torch.profiler over
+    ``chunks`` chunks of 8 × 32 frames at 112² after ``warmup``, the state
+    carried.  Prints the device kernel time and the kernels a chunk, the
+    device's busy share of the profiled wall time, and the kernels that
+    take the most time."""
+    import collections
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    frames = torch.randint(0, 255, (8, 32 * (warmup + chunks), 112, 112, 1),
+                           generator=torch.Generator().manual_seed(3),
+                           dtype=torch.uint8).to(device)
+    state = None
+
+    def chunk(i):
+        nonlocal state
+        x = frames[:, 32 * i:32 * (i + 1)].to(torch.float32) / 255.0
+        with torch.inference_mode():
+            _, state = model(x, state)
+
+    for i in range(warmup):
+        chunk(i)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()     # the profiler's own start-up excluded
+        for i in range(warmup, warmup + chunks):
+            chunk(i)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        print("streaming profile: no device events traced (not measured)")
+        return
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, (lo, hi) = 0.0, spans[0]
+    for s, e in spans[1:]:
+        if s > hi:
+            busy, lo = busy + hi - lo, s
+        hi = max(hi, e)
+    busy += hi - lo
+    by_name = collections.Counter()
+    for e in kernels:
+        by_name[e.name] += e.time_range.elapsed_us()
+    total = sum(by_name.values())
+    gdr_us = sum(t for n, t in by_name.items() if "wy_kernel" in n or "chain_kernel" in n)
+    print(f"streaming profile, {chunks} chunks after {warmup}: device kernel time "
+          f"{total / chunks / 1e3:.3f} ms a chunk in {len(kernels) / chunks:.0f} kernels; "
+          f"GDR kernels {gdr_us / chunks / 1e3:.3f} ms a chunk ({gdr_us / total:.2%}); "
+          f"device busy {busy / wall_us:.3f} of the profiled wall "
+          f"({wall_us / chunks / 1e3:.3f} ms a chunk)")
+    for name, us in by_name.most_common(8):
+        print(f"  {us / total:7.2%} {us / chunks / 1e3:8.3f} ms/chunk  {name[:110]}")
 
 
 _ZERO = {"fwd_kernel": 0, "chain_kernel": 0, "bwd_kernel": 0,
@@ -493,7 +709,8 @@ _ZERO = {"fwd_kernel": 0, "chain_kernel": 0, "bwd_kernel": 0,
 def _counters():
     from gdkvm_tpu_torch.core import gdr
     from gdkvm_tpu_torch.ops import gdr_cuda
-    return {"fwd_kernel": gdr_cuda.LAUNCHES, "chain_kernel": gdr_cuda.CHAIN_LAUNCHES,
+    return {"fwd_kernel": gdr_cuda.LAUNCHES,
+            "chain_kernel": gdr_cuda.CHAIN_LAUNCHES,
             "bwd_kernel": gdr_cuda.BWD_LAUNCHES,
             "residual_fwd": gdr_cuda.RESIDUAL_LAUNCHES,
             "plain_fwd": gdr.CHUNKED_CALLS, "plain_chain": gdr.CHAIN_CALLS,
@@ -506,8 +723,8 @@ def _reset_counts() -> None:
 
 
 def _read_counts() -> dict:
-    """Launches of each kernel (residual_fwd: the forward launches, of either
-    forward kernel, that wrote the backward's residuals), and calls of each
+    """Launches of each kernel (residual_fwd: the forward launches, of
+    either forward kernel, that wrote the backward's residuals), and calls of each
     plain version: the plain forward (gdr_chunked, with or without
     residuals), the plain chain (gdr_chain), the backward kernel's plain
     version (gdr_bwd_ref), and the stored backward (plain torch ops by
@@ -720,7 +937,15 @@ def phase_train_kernel_times(device) -> dict:
     print(f"GDR bwd at {shape}: kernel {b_ms:.4f} ms, plain (gdr_bwd_ref) "
           f"{b_plain:.4f} ms ({b_spread}); stored backward (plain torch ops) "
           f"{stored_ms:.4f} ms")
-    return {"fwd": (f_ms, f_plain), "bwd": (b_ms, b_plain)}
+    fwd_out = gdr_cuda.gdr_fwd_cuda_residuals(q, k, v, beta, alpha, s0)
+    bwd_out = gdr_cuda.gdr_bwd_cuda(*args)
+    return {"fwd": dict(_bound("fwd+residuals, training", f_ms,
+                               _fwd_ops(*TRAIN_SHAPE, exact=True),
+                               _nbytes(q, k, v, beta, alpha, s0, *fwd_out)),
+                        plain_ms=f_plain),
+            "bwd": dict(_bound("bwd, training", b_ms, _bwd_ops(*TRAIN_SHAPE),
+                               _nbytes(*args, *bwd_out)),
+                        plain_ms=b_plain, stored_ms=stored_ms)}
 
 
 # The serving main path: the engine's pool and chunk, at the model's size.
@@ -1024,7 +1249,8 @@ def phase_chain_times(device) -> dict:
     """The chain kernel against gdr_chain, and the chain split (batched
     solve + kernel) against the monolith kernel, at the serving shape
     (residual-free) and at the training shape (with the stored backward's
-    residuals), timed in turns."""
+    residuals), timed in turns; the forward's solve and chain kernels by
+    their profiled device time, the solve against the batched solve."""
     import torch
     from gdkvm_tpu_torch.core import gdr
     from gdkvm_tpu_torch.ops import gdr_cuda
@@ -1042,6 +1268,28 @@ def phase_chain_times(device) -> dict:
         mono = ((lambda: gdr_cuda.gdr_fwd_cuda_residuals(q, k, v, beta, alpha, s0))
                 if save else (lambda: gdr_cuda.gdr_fwd_cuda(q, k, v, beta, alpha, s0)))
         s_ms, m_ms, s_spread = _in_turns(mono, split)
+        # The forward's own solve kernel (its wy_kernel launches inside the
+        # forward) against the batched solve (every kernel of _wy), device
+        # time by torch.profiler, in turns.
+        wy_plain = lambda: gdr_cuda._wy(k, v, beta, None)
+        turns = [_profiled_ms(wy_plain), _profiled_ms(mono, match="wy_kernel"),
+                 _profiled_ms(mono, match="wy_kernel"), _profiled_ms(wy_plain)]
+        chain_in_fwd = _profiled_ms(mono, match="chain_kernel")
+        if None in turns or chain_in_fwd is None:
+            wy_ms = lib_ms = None
+            print(f"GDR WY solve [{name}]: no device time traced (not measured)")
+        else:
+            lib_ms, wy_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+            print(f"GDR WY solve [{name}]: kernel (wy_kernel inside the forward) "
+                  f"{wy_ms:.4f} ms, batched solve (_wy) {lib_ms:.4f} ms (profiled "
+                  f"device time a call, mean of 20 calls in turns: "
+                  + " ".join(f"{x:.4f}" for x in turns) + ")")
+            # What a one-launch design (solve overlapped with the chain, U
+            # and W kept on chip) could at best remove: the solve's time, or
+            # the events' time beyond the two kernels' own.
+            print(f"GDR forward [{name}] by kernel: solve {wy_ms:.4f} + chain "
+                  f"{chain_in_fwd:.4f} = {wy_ms + chain_in_fwd:.4f} ms of kernel time "
+                  f"(profiled), against {m_ms:.4f} ms between CUDA events")
         b, h, t, n, dk, dv = shape
         what = "with S_{t-1}, U, W" if save else "residual-free"
         print(f"GDR chain kernel [{name}] B={b} H={h} T={t} N={n} d={dk} bf16 q/k, "
@@ -1049,8 +1297,39 @@ def phase_chain_times(device) -> dict:
         print(f"GDR forward split [{name}], {what}: chain split {s_ms:.4f} ms "
               f"(batched solve alone {solve_ms:.4f} ms), monolith kernel "
               f"{m_ms:.4f} ms ({s_spread})")
-        out[name] = {"kernel": (k_ms, p_ms), "split": (s_ms, m_ms), "solve": solve_ms}
+        o, s_t, states = gdr_cuda.gdr_chain_cuda(q, k, u, w, alpha, s0, save_states=save)
+        mono_out = mono()
+        out[name] = {
+            "kernel": dict(_bound(f"chain, {name}", k_ms, _chain_ops(*shape, exact=True),
+                                  _nbytes(q, k, u, w, alpha, s0, o, s_t, states)),
+                           plain_ms=p_ms),
+            "fwd": _bound(f"fwd, {name}", m_ms, _fwd_ops(*shape, exact=True),
+                          _nbytes(q, k, v, beta, alpha, s0, *mono_out)),
+            "split": (s_ms, m_ms), "solve": solve_ms}
+        if wy_ms is not None:
+            _bound(f"WY solve, {name}", wy_ms, _solve_ops(*shape, exact=True),
+                   _nbytes(k, v, beta, u, w))
     return out
+
+
+def _profiled_ms(fn, iters: int = 20, match: str | None = None) -> float | None:
+    """Mean device time of a call of ``fn()`` (ms) as torch.profiler traces
+    it over ``iters`` calls after 3: the kernels whose name holds ``match``
+    (every kernel without one), summed and divided by ``iters``; None where
+    it traces no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA and (match is None or match in e.name))
+    return us / iters / 1e3 if us > 0 else None
 
 
 def main() -> int:
@@ -1067,6 +1346,7 @@ def main() -> int:
     err_res, err_bwd = phase_residuals_and_bwd(device)
     phase_fused_vs_stored(device)
     err_chain = phase_chain_vs_plain(device)
+    err_fwd = max(err_fwd, phase_solve_vs_plain(device))
     stream = phase_model(device)
     serve = phase_serve(device)
     train_launches = phase_train(device)
@@ -1074,28 +1354,30 @@ def main() -> int:
     phase_train_grads(device)
     phase_train_times(device)
     phase_serve_times(device, serve["model"])
-    fwd_ms, fwd_plain_ms = phase_gdr_times(device)
+    fwd_times = phase_gdr_times(device)
     times = phase_train_kernel_times(device)
     chain_times = phase_chain_times(device)
     src = "gdkvm_tpu_torch/csrc/"
+    # No one PyTorch call computes a GDR scan: no library yardstick.
     print(json.dumps({"kernels": [
         {"name": "gdr_fwd", "route": "cuda", "source": src + "gdr_fwd.cu",
          "replaces": "gdkvm_tpu/ops/gdr_pallas.py:513",
          "launches": stream["launches"], "max_abs_err": err_fwd,
-         "ms": fwd_ms, "plain_ms": fwd_plain_ms},
+         **fwd_times, "library_ms": None},
         {"name": "gdr_fwd_residuals", "route": "cuda", "source": src + "gdr_fwd.cu",
          "replaces": "gdkvm_tpu/ops/gdr_pallas.py:513",
          "launches": train_launches["fwd"], "max_abs_err": err_res,
-         "ms": times["fwd"][0], "plain_ms": times["fwd"][1]},
+         **times["fwd"], "library_ms": None},
         {"name": "gdr_bwd", "route": "cuda", "source": src + "gdr_bwd.cu",
          "replaces": "gdkvm_tpu/ops/gdr_pallas.py:724",
          "launches": train_launches["bwd"], "max_abs_err": err_bwd,
-         "ms": times["bwd"][0], "plain_ms": times["bwd"][1]},
-        {"name": "gdr_chain", "route": "cuda", "source": src + "gdr_chain.cu",
+         **{k: v for k, v in times["bwd"].items() if k != "stored_ms"},
+         "library_ms": None},
+        {"name": "gdr_chain", "route": "cuda", "source": src + "gdr_chain.cuh",
          "replaces": "gdkvm_tpu/ops/gdr_pallas.py:585",
          "launches": serve["chain_launches"] + chain_train_launches,
-         "max_abs_err": err_chain, "ms": chain_times["serve"]["kernel"][0],
-         "plain_ms": chain_times["serve"]["kernel"][1]},
+         "max_abs_err": err_chain, **chain_times["serve"]["kernel"],
+         "library_ms": None},
     ]}))
     print(f"card: {info['smi']}")
     print(json.dumps({"ok": True, "device": {

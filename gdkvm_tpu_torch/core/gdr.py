@@ -131,7 +131,7 @@ def gdr_chain(q: Tensor, k: Tensor, u: Tensor, w: Tensor, alpha: Tensor,
     → (o, s_T, states): ``states`` (B, H, T, d_k, d_v) holds S_{t-1} of
     every frame, before its decay, or None without ``save_states``.  All
     fp32.  It is the plain version of the CUDA chain kernel
-    (``csrc/gdr_chain.cu``, the port of the Pallas ``_gdr_chain_kernel``).
+    (``csrc/gdr_chain.cuh``, the port of the Pallas ``_gdr_chain_kernel``).
     """
     CHAIN_CALLS.n += 1
     return _chain_loop(q, k, u, w, alpha, s0, save_states)

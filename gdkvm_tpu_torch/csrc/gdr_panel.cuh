@@ -53,6 +53,7 @@ __device__ __forceinline__ void block_mm(int R, int C, int K, FA a, FB b,
     for (int ii = 0; ii < TI; ++ii)
 #pragma unroll
       for (int jj = 0; jj < TJ; ++jj) acc[ii][jj] = 0.f;
+#pragma unroll 4
     for (int kk = 0; kk < K; ++kk) {
       float av[TI], bv[TJ];
 #pragma unroll

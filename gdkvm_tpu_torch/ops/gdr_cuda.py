@@ -3,16 +3,19 @@
 - :func:`gdr_fwd_cuda` / :func:`gdr_fwd_cuda_residuals` launch
   ``csrc/gdr_fwd.cu``, the port of the Pallas TPU kernel ``_gdr_kernel``
   (gdkvm_tpu/ops/gdr_pallas.py), without or with its residual outputs
-  (S_{t-1} per frame; the frame's WY solve U, W).
-- :func:`gdr_chain_cuda` launches ``csrc/gdr_chain.cu``, the port of
-  ``_gdr_chain_kernel``: the per-frame chain alone, given every frame's WY
-  solve U, W from one batched solve (``core.gdr.wy_transform``), with
-  S_{t-1} per frame on request.
+  (S_{t-1} per frame; the frame's WY solve U, W).  One C call launches two
+  kernels on the current stream: the WY solve of every frame at once (one
+  block a frame) into U, W (the residuals, or scratch that the wrapper
+  allocates), then the state chain of ``csrc/gdr_chain.cuh``.
+- :func:`gdr_chain_cuda` launches that chain alone (``csrc/gdr_chain.cuh``,
+  built into the same library), the port of ``_gdr_chain_kernel``, given
+  every frame's WY solve U, W from one batched solve
+  (``core.gdr.wy_transform``), with S_{t-1} per frame on request.
 - :func:`gdr_bwd_cuda` launches ``csrc/gdr_bwd.cu``, the port of
   ``_gdr_bwd_kernel``: the reverse scan with dS on chip.
 - ``GDKVM_GDR_FWD`` picks the forward split, as in the JAX package:
-  ``monolith`` (default; ``gdr_fwd.cu`` solves inside the scan) or
-  ``chain`` (the batched solve, then ``gdr_chain.cu``).  It is read each
+  ``monolith`` (default; ``gdr_fwd.cu``'s own solve kernel) or ``chain``
+  (the batched solve, then the chain alone).  It is read each
   time a forward runs; the JAX package reads it once, at import.
 - :class:`GDRFunction` makes the kernel route differentiable, with the
   three backward modes of the JAX package's ``gdr_pallas_bh`` custom VJP,
@@ -42,10 +45,11 @@ o (B, H, T, N, d_v) fp32, s_T (B, H, d_k, d_v) fp32.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import os
-from typing import Optional, Tuple
+from typing import Iterator, Optional, Tuple
 
 import torch
 
@@ -55,8 +59,8 @@ from gdkvm_tpu_torch.ops import _build
 Tensor = torch.Tensor
 
 # Launches of each CUDA kernel (counted where it launches, and nowhere else).
-LAUNCHES = gdr.CallCount()        # gdr_fwd.cu, with or without residuals
-CHAIN_LAUNCHES = gdr.CallCount()  # gdr_chain.cu, with or without S_{t-1}
+LAUNCHES = gdr.CallCount()        # gdr_fwd (solve + chain in one call)
+CHAIN_LAUNCHES = gdr.CallCount()  # gdr_chain, with or without S_{t-1}
 BWD_LAUNCHES = gdr.CallCount()    # gdr_bwd.cu
 # Of the forward launches above (either kernel), those that wrote the
 # backward's residuals: an inference path shows 0 here.
@@ -64,10 +68,13 @@ RESIDUAL_LAUNCHES = gdr.CallCount()
 
 # Dynamic shared memory one block may use on Hopper (227 KB).
 SMEM_LIMIT_BYTES = 232_448
-PANEL = 32    # rows per panel of the blocked solves (csrc/gdr_panel.cuh)
-# The largest d_k the chain kernel's registers hold (kMaxDk in
-# csrc/gdr_chain.cu); its shared memory (~31 KB at d_k=64) does not grow
-# with N.
+THREADS = 256  # threads of every block of the forward kernels
+PANEL = 32     # rows per panel of the blocked solves (csrc/gdr_panel.cuh)
+WY_BLOCK = 16  # rows per diagonal block of the small-layout solve (gdr_fwd.cu)
+# The chain (csrc/gdr_chain.cuh): state columns per block, tokens per tile,
+# and the largest d_k its registers hold.
+CHAIN_COLS = 16
+CHAIN_ROWS = 64
 CHAIN_MAX_DK = 128
 
 
@@ -78,24 +85,66 @@ def _panel_floats(dk: int, m: int) -> int:
     return dk * (m + 1) + PANEL * (dk + 1) + PANEL * PANEL + PANEL * m + PANEL
 
 
-def _fwd_small_floats(n: int, dk: int, dv: int) -> int:
-    """S, Q, K with rows padded to d_k+1, [U | W] and A."""
-    return dk * dv + n * dk + n * (dk + 1) + n * (dv + dk) + n * n
+def _wy_small_floats(n: int, dk: int, dv: int) -> int:
+    """K, which the inverses of A's 16 × 16 diagonal blocks (rows of 20)
+    and one block's right-hand side replace once A is formed; X = [U | W];
+    A; β and η.  Rows are padded for the tensor cores' fragment reads: K's
+    and A's to 4 mod 8 floats, X's to 8 mod 32 (``Strides`` in
+    ``csrc/gdr_fwd.cu``)."""
+    up8 = lambda x: -(-x // 8) * 8
+    ld_k, ld_a, ld_x = up8(dk) + 4, up8(n) + 4, up8(dv + dk) + 8
+    region = max(n * ld_k, -(-n // WY_BLOCK) * WY_BLOCK * (WY_BLOCK + 4)
+                 + WY_BLOCK * ld_x)
+    return region + n * (ld_x + ld_a) + 2 * n
 
 
-def fwd_uses_panels(n: int, dk: int, dv: int) -> bool:
-    """True when the forward kernel's small layout does not fit in shared
-    memory, so it solves by panels and reads Q and K from global memory."""
-    return 4 * _fwd_small_floats(n, dk, dv) > SMEM_LIMIT_BYTES
+def wy_uses_panels(n: int, dk: int, dv: int) -> bool:
+    """True when the solve's small layout (A in shared memory, 16-row block
+    substitution) does not fit, so it solves by 32-row panels."""
+    return 4 * _wy_small_floats(n, dk, dv) > SMEM_LIMIT_BYTES
 
 
-def smem_bytes(n: int, dk: int, dv: int) -> int:
-    """Shared memory of one forward block at (N, d_k, d_v), fp32 (mirrors
-    ``smem_floats`` in ``csrc/gdr_fwd.cu``): S, [U | W] and the panel
-    workspace when solving by panels."""
-    if fwd_uses_panels(n, dk, dv):
-        return 4 * (dk * dv + n * (dv + dk) + _panel_floats(dk, dv + dk))
-    return 4 * _fwd_small_floats(n, dk, dv)
+def wy_smem_bytes(n: int, dk: int, dv: int) -> int:
+    """Shared memory of one solve block at (N, d_k, d_v) (mirrors
+    ``smem_floats`` in ``csrc/gdr_fwd.cu``): by panels, X = [U | W], the
+    panel workspace, β and η."""
+    if wy_uses_panels(n, dk, dv):
+        return 4 * (n * (dv + dk) + _panel_floats(dk, dv + dk) + 2 * n)
+    return 4 * _wy_small_floats(n, dk, dv)
+
+
+def chain_smem_bytes(dk: int, bf16: bool) -> int:
+    """Shared memory of one chain block (mirrors ``smem_bytes`` and
+    ``ring_stages`` in ``csrc/gdr_chain.cuh``): three ring stages (two where
+    three do not fit) of Q, K tiles (input type), W and U-column tiles
+    (fp32), each tile row d_k rounded up to 16 elements plus 16 bytes; then
+    S̃ transposed and the M tile (rows of 16 + 8 floats).  It does not grow
+    with N."""
+    d16 = -(-dk // 16) * 16
+    elem = 2 if bf16 else 4
+    stage = CHAIN_ROWS * (2 * (d16 + 16 // elem) * elem + 4 * (d16 + 4 + CHAIN_COLS))
+    fixed = 4 * (CHAIN_COLS * (d16 + 4) + CHAIN_ROWS * (CHAIN_COLS + 8))
+    stages = 3 if 3 * stage + fixed <= SMEM_LIMIT_BYTES else 2   # ring_stages
+    return stages * stage + fixed
+
+
+def fwd_launch_plan(b: int, h: int, t: int, n: int, dk: int, dv: int,
+                    bf16: bool) -> dict:
+    """The forward's two launches (grid, threads and shared memory of each)
+    and the bytes of its U, W scratch; ``fits`` is False where a block
+    would need more shared memory than Hopper gives it, or d_k is past the
+    chain's largest."""
+    plan = {
+        "solve": {"grid": (b * h * t,), "threads": THREADS,
+                  "smem": wy_smem_bytes(n, dk, dv),
+                  "panels": wy_uses_panels(n, dk, dv)},
+        "chain": {"grid": (b * h, -(-dv // CHAIN_COLS)), "threads": THREADS,
+                  "smem": chain_smem_bytes(dk, bf16)},
+        "scratch_bytes": 4 * b * h * t * n * (dv + dk),
+    }
+    plan["fits"] = (dk <= CHAIN_MAX_DK and max(
+        plan["solve"]["smem"], plan["chain"]["smem"]) <= SMEM_LIMIT_BYTES)
+    return plan
 
 
 def bwd_smem_bytes(n: int, dk: int, dv: int) -> int:
@@ -115,29 +164,24 @@ def bwd_scratch_floats(n: int, dk: int, dv: int) -> int:
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
+    """``csrc/gdr_fwd.cu``'s library: the forward and the chain alone."""
     lib = ctypes.CDLL(str(_build.build("gdr_fwd")))
     p, i, size = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
     lib.gdr_fwd.argtypes = [p] * 12 + [i] * 7 + [p]
     lib.gdr_fwd.restype = i
-    lib.gdr_error_string.argtypes = [i]
-    lib.gdr_error_string.restype = ctypes.c_char_p
-    lib.gdr_fwd_smem_bytes.argtypes = [i, i, i]
-    lib.gdr_fwd_smem_bytes.restype = size
-    lib.gdr_fwd_uses_panels.argtypes = [i, i, i]
-    lib.gdr_fwd_uses_panels.restype = i
-    return lib
-
-
-@functools.cache
-def _chain_lib() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(_build.build("gdr_chain")))
-    p, i = ctypes.c_void_p, ctypes.c_int
     lib.gdr_chain.argtypes = [p] * 9 + [i] * 7 + [p]
     lib.gdr_chain.restype = i
-    lib.gdr_chain_error_string.argtypes = [i]
-    lib.gdr_chain_error_string.restype = ctypes.c_char_p
-    lib.gdr_chain_max_dk.argtypes = []
-    lib.gdr_chain_max_dk.restype = i
+    lib.gdr_error_string.argtypes = [i]
+    lib.gdr_error_string.restype = ctypes.c_char_p
+    lib.gdr_wy_smem_bytes.argtypes = [i, i, i]
+    lib.gdr_wy_smem_bytes.restype = size
+    lib.gdr_wy_uses_panels.argtypes = [i, i, i]
+    lib.gdr_wy_uses_panels.restype = i
+    for fn in (lib.gdr_chain_max_dk, lib.gdr_chain_cols):
+        fn.argtypes = []
+        fn.restype = i
+    lib.gdr_chain_smem_bytes.argtypes = [i, i]
+    lib.gdr_chain_smem_bytes.restype = size
     return lib
 
 
@@ -167,11 +211,23 @@ def _check(name: str, x: Tensor, shape: tuple, dtypes: tuple,
         raise ValueError(f"{name}: must be contiguous (call .contiguous())")
 
 
+def _require_cuda(fn: str, x: Tensor) -> None:
+    if not x.is_cuda:
+        raise ValueError(f"{fn} takes CUDA tensors, got q on {x.device}")
+
+
+@contextlib.contextmanager
+def _launching(dev: torch.device) -> Iterator[int]:
+    """Make ``dev`` the current device and yield its current stream, as
+    the int that the C entry points take."""
+    with torch.cuda.device(dev):
+        yield torch.cuda.current_stream(dev).cuda_stream
+
+
 def _check_inputs(fn: str, q: Tensor, k: Tensor, v: Tensor, beta: Tensor,
                   eta: Tensor, alpha: Tensor) -> Tuple[int, ...]:
     """Check the operands both kernels share; return (B, H, T, N, d_k, d_v)."""
-    if not q.is_cuda:
-        raise ValueError(f"{fn} takes CUDA tensors, got q on {q.device}")
+    _require_cuda(fn, q)
     if q.dim() != 5 or v.dim() != 5:
         raise ValueError("q, k, v must be (B, H, T, N, d)")
     b, h, t, n, dk = q.shape
@@ -195,33 +251,40 @@ def _launch_fwd(q: Tensor, k: Tensor, v: Tensor, beta: Tensor, alpha: Tensor,
     b, h, t, n, dk, dv = _check_inputs("gdr_fwd_cuda", q, k, v, beta, eta, alpha)
     dev = q.device
     _check("s0", s0, (b, h, dk, dv), (torch.float32,), dev)
-    need = smem_bytes(n, dk, dv)
-    if need > SMEM_LIMIT_BYTES:
-        raise ValueError(
-            f"GDR kernel tiles at N={n}, d_k={dk}, d_v={dv} need {need} B of "
-            f"shared memory, over the {SMEM_LIMIT_BYTES} B a block may use")
+    _check_plan(b, h, t, n, dk, dv, q.dtype == torch.bfloat16)
 
     lib = _lib()
     f32 = dict(dtype=torch.float32, device=dev)
     o = torch.empty((b, h, t, n, dv), **f32)
     s_t = torch.empty((b, h, dk, dv), **f32)
     states = torch.empty((b, h, t, dk, dv), **f32) if save_states else None
-    u = torch.empty((b, h, t, n, dv), **f32) if save_uw else None
-    w = torch.empty((b, h, t, n, dk), **f32) if save_uw else None
-    ptr = lambda x: None if x is None else x.data_ptr()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    # The solve's U, W: the residuals, or scratch that dies with this call.
+    u = torch.empty((b, h, t, n, dv), **f32)
+    w = torch.empty((b, h, t, n, dk), **f32)
+    with _launching(dev) as stream:
         err = lib.gdr_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                           beta.data_ptr(), eta.data_ptr(), alpha.data_ptr(),
                           s0.data_ptr(), o.data_ptr(), s_t.data_ptr(),
-                          ptr(states), ptr(u), ptr(w), b, h, t, n, dk, dv, int(q.dtype == torch.bfloat16),
-                          stream)
+                          None if states is None else states.data_ptr(),
+                          u.data_ptr(), w.data_ptr(), b, h, t, n, dk, dv,
+                          int(q.dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"gdr_fwd launch failed: CUDA error {err} "
                            f"({lib.gdr_error_string(err).decode()})")
     LAUNCHES.n += 1
     RESIDUAL_LAUNCHES.n += save_states or save_uw
-    return o, s_t, states, u, w
+    return o, s_t, states, *((u, w) if save_uw else (None, None))
+
+
+def _check_plan(b: int, h: int, t: int, n: int, dk: int, dv: int,
+                bf16: bool) -> None:
+    plan = fwd_launch_plan(b, h, t, n, dk, dv, bf16)
+    if not plan["fits"]:
+        raise ValueError(
+            f"GDR forward at N={n}, d_k={dk}, d_v={dv}: the solve needs "
+            f"{plan['solve']['smem']} B and the chain {plan['chain']['smem']} B "
+            f"of shared memory (a block may use {SMEM_LIMIT_BYTES} B), and "
+            f"the chain takes d_k <= {CHAIN_MAX_DK}")
 
 
 def gdr_fwd_cuda(q: Tensor, k: Tensor, v: Tensor, beta: Tensor, alpha: Tensor,
@@ -255,8 +318,7 @@ def gdr_chain_cuda(q: Tensor, k: Tensor, u: Tensor, w: Tensor, alpha: Tensor,
     and w (…, N, d_k) fp32 from ``core.gdr.wy_transform``.  Raises on a
     CPU tensor, on a shape, dtype or layout it does not take, and on a
     failed launch.  Its plain version is ``core.gdr.gdr_chain``."""
-    if not q.is_cuda:
-        raise ValueError(f"gdr_chain_cuda takes CUDA tensors, got q on {q.device}")
+    _require_cuda("gdr_chain_cuda", q)
     if q.dim() != 5 or u.dim() != 5:
         raise ValueError("q, k, u, w must be (B, H, T, N, d)")
     b, h, t, n, dk = q.shape
@@ -273,13 +335,12 @@ def gdr_chain_cuda(q: Tensor, k: Tensor, u: Tensor, w: Tensor, alpha: Tensor,
     if dk > CHAIN_MAX_DK:
         raise ValueError(f"the chain kernel takes d_k <= {CHAIN_MAX_DK}, got {dk}")
 
-    lib = _chain_lib()
+    lib = _lib()
     f32 = dict(dtype=torch.float32, device=dev)
     o = torch.empty((b, h, t, n, dv), **f32)
     s_t = torch.empty((b, h, dk, dv), **f32)
     states = torch.empty((b, h, t, dk, dv), **f32) if save_states else None
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    with _launching(dev) as stream:
         err = lib.gdr_chain(q.data_ptr(), k.data_ptr(), u.data_ptr(),
                             w.data_ptr(), alpha.data_ptr(), s0.data_ptr(),
                             o.data_ptr(), s_t.data_ptr(),
@@ -288,7 +349,7 @@ def gdr_chain_cuda(q: Tensor, k: Tensor, u: Tensor, w: Tensor, alpha: Tensor,
                             stream)
     if err != 0:
         raise RuntimeError(f"gdr_chain launch failed: CUDA error {err} "
-                           f"({lib.gdr_chain_error_string(err).decode()})")
+                           f"({lib.gdr_error_string(err).decode()})")
     CHAIN_LAUNCHES.n += 1
     RESIDUAL_LAUNCHES.n += save_states
     return o, s_t, states
@@ -321,8 +382,7 @@ def gdr_bwd_cuda(q: Tensor, k: Tensor, v: Tensor, beta: Tensor, eta: Tensor,
     dalpha = torch.empty((b, h, t), **f32)
     ds0 = torch.empty((b, h, dk, dv), **f32)
     scratch = torch.empty((b * h * bwd_scratch_floats(n, dk, dv),), **f32)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    with _launching(dev) as stream:
         err = lib.gdr_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                           beta.data_ptr(), eta.data_ptr(), alpha.data_ptr(),
                           states.data_ptr(), do.data_ptr(), ds_t.data_ptr(),

@@ -183,12 +183,15 @@ def train_step(state: TrainState, batch: Batch, cfg: Config
 
 
 def train(cfg: Config, max_steps: Optional[int] = None,
-          device: torch.device | str | None = None) -> Dict[str, float]:
+          device: torch.device | str = "cuda") -> Dict[str, float]:
     """Train from scratch on ``cfg`` for ``max_steps`` micro-steps (default
-    ``num_iterations``), on the CUDA device when there is one; return the
-    last step's metrics as floats."""
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
+    ``num_iterations``) on ``device``, the CUDA device unless the caller
+    asks for the CPU; return the last step's metrics as floats.  Raises
+    when ``device`` is CUDA and there is no card: it never falls back."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("train: no CUDA device; pass device='cpu' to train "
+                           "on the CPU")
     model = GDKVM(train_model_config(cfg.model, cfg.data.image_size),
                   device=device)
     state = create_train_state(cfg, model)

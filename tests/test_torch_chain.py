@@ -20,6 +20,7 @@ import torch
 from gdkvm_tpu.ops import gdr_pallas
 from gdkvm_tpu_torch.core import gdr
 from gdkvm_tpu_torch.ops import gdr_cuda
+from test_torch_gdr import fake_launch  # noqa: F401  (a fixture)
 from test_torch_gdr_bwd import _NO_CALLS, _inputs, _plain_launchers, _t, _weights
 
 torch.set_num_threads(1)
@@ -178,6 +179,27 @@ def test_chain_kernel_refuses_cpu_tensors(monkeypatch):
         gdr_cuda.gdr_kernel(q.requires_grad_(True), k, v, beta, alpha, s0)
     assert (gdr_cuda.CHAIN_LAUNCHES.n, gdr_cuda.RESIDUAL_LAUNCHES.n,
             gdr.CHAIN_CALLS.n) == (0, 0, 0)
+
+
+@pytest.mark.parametrize("save_states", [False, True], ids=["no_states", "states"])
+def test_chain_wrapper_passes_arguments_in_order(fake_launch, save_states):
+    """gdr_chain_cuda with its library faked: one C call with the pointers
+    in the order of the prototype, S_{t-1} only on request, the shapes, the
+    bf16 flag and the stream; one chain launch counted, and one residual
+    launch when it saves S_{t-1}."""
+    q, k, v, beta, alpha, s0 = _t(_inputs(29, B=2, T=3, N=5, dk=8, dv=12))
+    q, k = q.to(torch.bfloat16), k.to(torch.bfloat16)
+    u, w = (x.contiguous() for x in gdr.wy_transform(k, v, beta))
+    o, s_t, states = gdr_cuda.gdr_chain_cuda(q, k, u, w, alpha, s0,
+                                             save_states=save_states)
+    [(name, args)] = fake_launch.calls
+    assert name == "gdr_chain" and len(args) == 17
+    assert list(args[:8]) == [x.data_ptr() for x in (q, k, u, w, alpha, s0, o, s_t)]
+    assert args[8] == (states.data_ptr() if save_states else None)
+    assert list(args[9:]) == [2, 2, 3, 5, 8, 12, 1, 7]
+    assert o.shape == (2, 2, 3, 5, 12) and s_t.shape == (2, 2, 8, 12)
+    assert (gdr_cuda.CHAIN_LAUNCHES.n, gdr_cuda.RESIDUAL_LAUNCHES.n,
+            gdr_cuda.LAUNCHES.n) == (1, int(save_states), 0)
 
 
 @pytest.mark.parametrize("mode", sorted(CHAIN_CALLS))

@@ -152,9 +152,9 @@ def test_port_imports_without_jax():
 
 
 def test_no_jax_imports_in_sources():
-    """Static scan: no import of jax, flax or gdkvm_tpu in the port or in
-    chip_smoke.py."""
-    files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    """Static scan: no import of jax, flax or gdkvm_tpu in the port, in
+    chip_smoke.py or in kernel_turns.py."""
+    files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "kernel_turns.py"]
     bad = []
     for f in files:
         for node in ast.walk(ast.parse(f.read_text(), str(f))):
@@ -198,3 +198,13 @@ def test_chip_smoke_refuses_to_run_without_cuda(tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert res.returncode != 0
     assert '"ok"' not in res.stdout
+
+
+def test_kernel_turns_refuses_to_run_without_cuda(tmp_path):
+    """kernel_turns.py exits nonzero without a CUDA device, before it
+    starts a turn, and with no tree to compare with."""
+    for argv in ([str(tmp_path)], []):
+        res = subprocess.run([sys.executable, "kernel_turns.py", *argv], cwd=REPO,
+                             capture_output=True, text=True, timeout=120)
+        assert res.returncode != 0
+        assert "other/this" not in res.stdout

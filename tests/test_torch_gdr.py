@@ -183,19 +183,180 @@ def test_kernel_refuses_cpu_tensors():
 def test_kernel_shared_memory_limit():
     """The kernels' shared memory fits a Hopper block at the streaming shapes
     (N=49 at 112², N=64) and at the 256² training shape (N=256, d=64).  The
-    forward keeps Q, K and A in shared memory up to N=137 at d=64 (the
-    streaming layout), solves by panels above that, and fits up to N=301;
-    the backward fits beyond."""
+    forward's solve keeps K, [U | W] and A in shared memory up to N=157 at
+    d=64 (16-row block substitution), solves by 32-row panels above that,
+    and fits beyond N=301; the chain's tiles do not grow with N; the
+    backward fits to N=301."""
     limit = gdr_cuda.SMEM_LIMIT_BYTES
-    for n in (49, 64, 137):
-        assert not gdr_cuda.fwd_uses_panels(n, 64, 64)
-        assert gdr_cuda.smem_bytes(n, 64, 64) <= limit
-    for n in (138, 256, 301):
-        assert gdr_cuda.fwd_uses_panels(n, 64, 64)
-        assert gdr_cuda.smem_bytes(n, 64, 64) <= limit
-    assert gdr_cuda.smem_bytes(256, 64, 64) == 209_408
-    assert gdr_cuda.smem_bytes(301, 64, 64) == limit
-    assert gdr_cuda.smem_bytes(302, 64, 64) > limit
+    for n in (49, 64, 137, 157):
+        assert not gdr_cuda.wy_uses_panels(n, 64, 64)
+        assert gdr_cuda.wy_smem_bytes(n, 64, 64) <= limit
+    for n in (158, 256, 301):
+        assert gdr_cuda.wy_uses_panels(n, 64, 64)
+        assert gdr_cuda.wy_smem_bytes(n, 64, 64) <= limit
+    assert gdr_cuda.wy_smem_bytes(49, 64, 64) == 52_632
+    assert gdr_cuda.wy_smem_bytes(256, 64, 64) == 195_072
+    assert gdr_cuda.wy_smem_bytes(327, 64, 64) <= limit < gdr_cuda.wy_smem_bytes(328, 64, 64)
+    assert gdr_cuda.chain_smem_bytes(64, True) == 130_304
+    assert gdr_cuda.chain_smem_bytes(64, False) == 179_456
+    assert gdr_cuda.chain_smem_bytes(gdr_cuda.CHAIN_MAX_DK, False) <= limit
     assert gdr_cuda.bwd_smem_bytes(256, 64, 64) == 205_216 <= limit
     assert gdr_cuda.bwd_smem_bytes(301, 64, 64) <= limit
     assert gdr_cuda.bwd_scratch_floats(256, 64, 64) * 4 == 458_752
+
+
+def _replaced_fwd_fits(n, dk, dv):
+    """Whether the one-block-per-(b, h) forward kernel that this design
+    replaced took (N, d_k, d_v): S, Q, padded K, [U | W] and A in shared
+    memory, else S, [U | W] and the panel workspace."""
+    limit, m = gdr_cuda.SMEM_LIMIT_BYTES, dv + dk
+    small = dk * dv + n * dk + n * (dk + 1) + n * m + n * n
+    return 4 * min(small, dk * dv + n * m + gdr_cuda._panel_floats(dk, m)) <= limit
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+def test_launch_plan_takes_every_shape_the_old_kernel_took(d, bf16):
+    """For every N from 1 to 301 that the replaced forward kernel took at
+    d_k = d_v = d, both launches fit a Hopper block, the solve has one
+    block a frame and the chain (B·H, d_v/16) blocks, and the scratch holds
+    U and W in fp32; the layouts switch to panels where A stops fitting."""
+    b, h, t = 2, 3, 5
+    taken = [n for n in range(1, 302) if _replaced_fwd_fits(n, d, d)]
+    assert taken[0] == 1 and len(taken) == {32: 301, 64: 301, 128: 71}[d]
+    for n in taken:
+        plan = gdr_cuda.fwd_launch_plan(b, h, t, n, d, d, bf16)
+        assert plan["fits"], n
+        assert plan["solve"]["grid"] == (b * h * t,)
+        assert plan["chain"]["grid"] == (b * h, -(-d // 16))
+        assert plan["solve"]["threads"] == plan["chain"]["threads"] == 256
+        assert max(plan["solve"]["smem"], plan["chain"]["smem"]) <= gdr_cuda.SMEM_LIMIT_BYTES
+        assert plan["scratch_bytes"] == 4 * b * h * t * n * 2 * d
+        assert plan["solve"]["panels"] == (4 * gdr_cuda._wy_small_floats(n, d, d)
+                                           > gdr_cuda.SMEM_LIMIT_BYTES)
+    assert not gdr_cuda.fwd_launch_plan(b, h, t, 8, 136, 64, bf16)["fits"]
+
+
+def test_serving_shape_fills_the_card():
+    """At the serving shape (8 slots × 16 frames at 112², N=49, 4 heads of
+    64 × 64) the chain runs at least 128 blocks (the replaced kernel ran
+    32) and the solve one block for each of the B·H·T = 512 frames; its
+    12.8 MB of U, W scratch fits the 50 MB L2."""
+    plan = gdr_cuda.fwd_launch_plan(8, 4, 16, 49, 64, 64, True)
+    chain_blocks = plan["chain"]["grid"][0] * plan["chain"]["grid"][1]
+    assert chain_blocks >= 128 and plan["solve"]["grid"] == (512,)
+    assert not plan["solve"]["panels"]
+    assert plan["scratch_bytes"] == 12_845_056 < 50e6
+    train = gdr_cuda.fwd_launch_plan(8, 4, 10, 256, 64, 64, True)
+    assert train["solve"]["panels"] and train["solve"]["grid"] == (320,)
+
+
+class _FakeLib:
+    """Stands in for a kernel library: records each entry point's
+    arguments and returns ``err``."""
+
+    def __init__(self, err=0):
+        self.err, self.calls = err, []
+
+    def __getattr__(self, name):
+        if name.endswith("error_string"):
+            return lambda err: b"fake error"
+
+        def entry(*args):
+            self.calls.append((name, args))
+            return self.err
+        return entry
+
+
+@pytest.fixture
+def fake_launch(monkeypatch):
+    """The wrappers on CPU tensors with the forward's library (which holds
+    the chain too) faked: no device check, stream 7."""
+    import contextlib
+    lib = _FakeLib()
+    monkeypatch.setattr(gdr_cuda, "_require_cuda", lambda fn, x: None)
+    monkeypatch.setattr(gdr_cuda, "_launching",
+                        lambda dev: contextlib.nullcontext(7))
+    monkeypatch.setattr(gdr_cuda, "_lib", lambda: lib)
+    for c in (gdr_cuda.LAUNCHES, gdr_cuda.CHAIN_LAUNCHES, gdr_cuda.RESIDUAL_LAUNCHES):
+        c.reset()
+    return lib
+
+
+@pytest.mark.parametrize("save", ["none", "states", "states_uw"])
+def test_fwd_wrapper_passes_arguments_in_order(fake_launch, save):
+    """One forward is one C call (solve and chain inside) and one count,
+    whatever it launches: its pointers in the order of the C prototype, the
+    U/W scratch allocated by the wrapper even when it returns no residuals,
+    the shapes, the bf16 flag and the stream."""
+    q, k, v, beta, alpha, s0 = _t(_inputs(10, B=2, H=2, T=3, N=5, dk=8, dv=4))
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    if save == "none":
+        out = gdr_cuda.gdr_fwd_cuda(q, k, v, beta, alpha, s0)
+        assert len(out) == 2
+    else:
+        out = gdr_cuda.gdr_fwd_cuda_residuals(q, k, v, beta, alpha, s0,
+                                              save_uw=save == "states_uw")
+        assert (out[3] is None) == (save == "states")
+    [(name, args)] = fake_launch.calls
+    assert name == "gdr_fwd" and len(args) == 20
+    ptrs, ints, stream = args[:12], args[12:19], args[19]
+    want = [x.data_ptr() for x in (q, k, v, beta, beta, alpha, s0, out[0], out[1])]
+    assert list(ptrs[:9]) == want            # eta=None passes beta as eta
+    assert (ptrs[9] is None) == (save == "none")
+    assert ptrs[10] and ptrs[11] and len(set(ptrs[7:12]) - {None}) == 4 + (save != "none")
+    if save == "states_uw":
+        assert (ptrs[9], ptrs[10], ptrs[11]) == tuple(x.data_ptr() for x in out[2:])
+        assert out[3].shape == (2, 2, 3, 5, 4) and out[4].shape == (2, 2, 3, 5, 8)
+    assert list(ints) == [2, 2, 3, 5, 8, 4, 1] and stream == 7
+    assert (gdr_cuda.LAUNCHES.n, gdr_cuda.RESIDUAL_LAUNCHES.n) == (1, int(save != "none"))
+    assert gdr_cuda.CHAIN_LAUNCHES.n == 0
+
+
+def test_wrappers_raise_on_a_failed_launch(fake_launch):
+    """A nonzero return from any C entry point raises with CUDA's message,
+    and nothing is counted."""
+    q, k, v, beta, alpha, s0 = _t(_inputs(11, B=1, T=2))
+    fake_launch.err = 98
+    u, w = gdr.wy_transform(k, v, beta)
+    with pytest.raises(RuntimeError, match="gdr_fwd launch failed: CUDA error 98"):
+        gdr_cuda.gdr_fwd_cuda(q, k, v, beta, alpha, s0)
+    with pytest.raises(RuntimeError, match="gdr_fwd launch failed: CUDA error 98"):
+        gdr_cuda.gdr_fwd_cuda_residuals(q, k, v, beta, alpha, s0)
+    with pytest.raises(RuntimeError, match="gdr_chain launch failed: CUDA error 98"):
+        gdr_cuda.gdr_chain_cuda(q, k, u.contiguous(), w.contiguous(), alpha, s0,
+                                save_states=True)
+    assert (gdr_cuda.LAUNCHES.n, gdr_cuda.CHAIN_LAUNCHES.n,
+            gdr_cuda.RESIDUAL_LAUNCHES.n) == (0, 0, 0)
+
+
+def test_fwd_wrapper_passes_decoupled_eta_and_returns_the_solve(fake_launch):
+    """With a decoupled η the forward passes it in η's slot (not β), and with
+    ``save_uw`` it returns the U, W it allocated for the solve kernel: fp32,
+    (…, N, d_v) and (…, N, d_k), the C call's 11th and 12th pointers."""
+    q, k, v, beta, alpha, s0 = _t(_inputs(12, B=2, H=3, T=4, N=6, dk=8, dv=12))
+    eta = beta * 0.5
+    out = gdr_cuda.gdr_fwd_cuda_residuals(q, k, v, beta, alpha, s0, eta)
+    [(name, args)] = fake_launch.calls
+    assert name == "gdr_fwd"
+    assert list(args[:6]) == [x.data_ptr() for x in (q, k, v, beta, eta, alpha)]
+    u, w = out[3], out[4]
+    assert (args[10], args[11]) == (u.data_ptr(), w.data_ptr())
+    assert list(args[12:]) == [2, 3, 4, 6, 8, 12, 0, 7]
+    assert u.shape == (2, 3, 4, 6, 12) and w.shape == (2, 3, 4, 6, 8)
+    assert u.dtype == w.dtype == torch.float32
+    assert (gdr_cuda.LAUNCHES.n, gdr_cuda.RESIDUAL_LAUNCHES.n) == (1, 1)
+
+
+def test_fwd_wrapper_refuses_what_the_kernels_do_not_take(fake_launch):
+    """Shapes past the launch plan (d_k over the chain's 128; a solve block
+    over 227 KB) raise before anything launches."""
+    q, k, v, beta, alpha, s0 = _t(_inputs(13, B=1, H=1, T=1, N=4, dk=136, dv=8))
+    with pytest.raises(ValueError, match="d_k <= 128"):
+        gdr_cuda.gdr_fwd_cuda(q, k, v, beta, alpha, s0)
+    q, k, v, beta, alpha, s0 = _t(_inputs(13, B=1, H=1, T=1, N=400, dk=64, dv=64))
+    with pytest.raises(ValueError, match="shared memory"):
+        gdr_cuda.gdr_fwd_cuda(q, k, v, beta, alpha, s0)
+    with pytest.raises(ValueError, match="shared memory"):
+        gdr_cuda.gdr_fwd_cuda_residuals(q, k, v, beta, alpha, s0)
+    assert fake_launch.calls == [] and gdr_cuda.LAUNCHES.n == 0

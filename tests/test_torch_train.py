@@ -287,3 +287,18 @@ def test_train_runs_on_cpu():
     metrics = train(cfg, max_steps=3, device="cpu")
     assert set(metrics) == {"loss", "ce", "dice_loss", "micro_grad_norm"}
     assert all(np.isfinite(v) for v in metrics.values())
+
+
+def test_train_defaults_to_cuda_and_never_falls_back(monkeypatch):
+    """train(cfg, max_steps) with no device runs on the card; where there is
+    none it raises instead of training on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = Config(model=ModelConfig(enc_channels=(8, 8, 16, 16),
+                                   enc_blocks=(1, 1, 1, 1), num_heads=1,
+                                   head_dim_k=8, head_dim_v=8,
+                                   kpff_channels=(8, 8)),
+                 data=DataConfig(image_size=32, clip_len=2),
+                 train=TrainConfig(batch_size=2, num_iterations=1))
+    for device in ((), ("cuda",)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            train(cfg, 1, *device)
