@@ -6,15 +6,21 @@ Phases, each of which fails the run (nonzero exit) when it fails:
 
 1. device and versions (torch, CUDA, nvcc, the card's name and power limit);
 2. build the GDR kernels (``gdkvm_tpu_torch/csrc/gdr_fwd.cu``, which
-   holds the forward's solve and the chain of ``gdr_chain.cuh``, and
-   ``gdr_bwd.cu``) with nvcc from the checkout's sources, in parallel,
-   print nvcc's ptxas report of each (registers, spills, shared memory)
-   and hold the wrappers' launch plans to the sources';
+   holds the forward's solve (``gdr_wy.cuh``) and the chain of
+   ``gdr_chain.cuh``, and ``gdr_bwd.cu``: the same solve, the reverse dS
+   chain and the per-frame adjoint) with nvcc from the checkout's
+   sources, in parallel, print nvcc's ptxas report of each (registers,
+   spills, shared memory) and hold the wrappers' launch plans to the
+   sources';
 3. each kernel against its plain PyTorch version on identical inputs: the
    forward without residuals at the streaming shapes, the forward with its
    residuals (S_{t-1}, U, W) and the backward at the training shape (B=8
-   H=4 T=10 N=256 d=64, bf16 q/k/v) and at small shapes; fused against
-   stored gradients through the autograd Function; the chain kernel
+   H=4 T=10 N=256 d=64, bf16 q/k/v) and at small shapes; each of the
+   backward's phases against its plain version (``wy_transform``,
+   ``gdr_bwd_chain``, ``gdr_bwd_frames``) fed the kernel's own output of
+   the phase before; fused against stored gradients through the
+   autograd Function; the bf16 residuals (``GDKVM_GDR_SAVE_DTYPE=bf16``)
+   against the plain rounding; the chain kernel
    against ``gdr_chain`` at the serving shapes (B=8 H=4 T=16 and 32 N=49),
    the training shape, N=7, d_k≠d_v and T=1, chained calls, and the chain
    split (batched solve + kernel) against the monolith kernel; the
@@ -43,10 +49,10 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    path's shape and the chain split against the monolith kernel at the
    serving and the training shape, timed in turns on the device alone
    (CUDA events); the WY solve kernel inside the forward against the
-   batched solve, by torch.profiler's device time; each beside its bound
-   (operations on fp32 FMAs at 67 TFLOP/s plus 3xTF32 passes on the
-   tensor cores at 495, or bytes at 3.35 TB/s, whichever is longer) and
-   its share of it.
+   batched solve, and the backward's three phases, by torch.profiler's
+   device time; a training step's device time; each beside its bound
+   (the function's products in 3xTF32 passes at 495 TFLOP/s, or bytes at
+   3.35 TB/s, whichever is longer) and its share of it.
 
 The line before the last is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
@@ -134,55 +140,55 @@ def _abs(got, want) -> float:
 
 
 # Published dense peaks of one H100 SXM at its 700 W limit (NVIDIA's data
-# sheet): fp32 FMAs outside the tensor cores, TF32 on the tensor cores, and
-# HBM3.
-PEAK_FP32_FLOPS = 67e12
+# sheet): TF32 on the tensor cores, and HBM3.
 PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
 
-# Operations of a kernel by the unit that does them: (flops on fp32 FMAs,
-# flops on the tensor cores counted once per TF32 pass).  A product runs on
-# the tensor cores in 3xTF32 (csrc/gdr_mma.cuh): three passes, one fewer for
-# each operand exact in TF32 (a bf16 q or k), so A = ηKKᵀ of bf16 K is one.
+# Operations of a kernel are the function's products, counted in TF32
+# passes at the card's fp32-accurate rate whatever unit a design runs them
+# on: a product of fp32 operands is three passes (3xTF32, csrc/gdr_mma.cuh),
+# one fewer for each operand exact in TF32 (a bf16 q or k), so A = ηKKᵀ of
+# bf16 K is one.  The 3xTF32 rate is above fp32 FMAs' 67 TFLOP/s, so this is
+# the least time for the function on this card.
 
 
 def _passes(exact_a: bool, exact_b: bool) -> int:
     return 3 - exact_a - exact_b
 
 
-def _solve_ops(b, h, t, n, dk, dv, exact: bool) -> tuple[int, int]:
-    """The WY solve of every frame: A (N(N-1)/2 entries of 2 d_k) and the
-    substitution (N(N-1)/2 entries times d_v + d_k columns, 2 each).  In
-    the 16-row block layout both run on the tensor cores (A with K exact
-    when bf16, the substitution on fp32 operands); the 32-row panel layout
-    (large N) runs both on fp32 FMAs.  The 16 × 16 inverses are the
-    design's, not the function's, work and are not counted."""
-    from gdkvm_tpu_torch.ops import gdr_cuda
+def _solve_ops(b, h, t, n, dk, dv, exact: bool) -> int:
+    """The WY solve of every frame: A (N(N-1)/2 entries of 2 d_k; K exact
+    when bf16) and the substitution (N(N-1)/2 entries times d_v + d_k
+    columns, 2 each; fp32 operands).  A design's own work (the 16 × 16
+    inverses) is not counted."""
     a, subst = b * h * t * n * (n - 1) * dk, b * h * t * n * (n - 1) * (dk + dv)
-    if gdr_cuda.wy_uses_panels(n, dk, dv):
-        return a + subst, 0
-    return 0, a * _passes(exact, exact) + subst * _passes(False, False)
+    return a * _passes(exact, exact) + subst * _passes(False, False)
 
 
-def _chain_ops(b, h, t, n, dk, dv, exact: bool) -> tuple[int, int]:
-    """Q S̃, W S̃ and Kᵀ M of every frame (2 N d_k d_v each), on the tensor
-    cores: Q and K exact when bf16, W, S̃ and M fp32."""
+def _chain_ops(b, h, t, n, dk, dv, exact: bool) -> int:
+    """Q S̃, W S̃ and Kᵀ M of every frame (2 N d_k d_v each): Q and K exact
+    when bf16, W, S̃ and M fp32."""
     one = 2 * b * h * t * n * dk * dv
-    return 0, one * (2 * _passes(exact, False) + _passes(False, False))
+    return one * (2 * _passes(exact, False) + _passes(False, False))
 
 
-def _fwd_ops(b, h, t, n, dk, dv, exact: bool) -> tuple[int, int]:
+def _fwd_ops(b, h, t, n, dk, dv, exact: bool) -> int:
     """The forward: every frame's solve, then the chain."""
-    (fma_s, tc_s), (fma_c, tc_c) = (_solve_ops(b, h, t, n, dk, dv, exact),
-                                    _chain_ops(b, h, t, n, dk, dv, exact))
-    return fma_s + fma_c, tc_s + tc_c
+    return _solve_ops(b, h, t, n, dk, dv, exact) + _chain_ops(b, h, t, n, dk, dv, exact)
 
 
-def _bwd_ops(b, h, t, n, dk, dv) -> tuple[int, int]:
-    """The reverse scan recomputing each frame's solve, all on fp32 FMAs:
-    A, both solves, dA = stril(Y Xᵀ), dA K and dAᵀ(ηK) (each N(N-1) times
-    d_k or d_v + d_k), and seven N × d_k × d_v products."""
-    return b * h * t * (n * (n - 1) * (3 * dk + 3 * (dk + dv)) + 14 * n * dk * dv), 0
+def _bwd_ops(b, h, t, n, dk, dv, exact: bool) -> int:
+    """The backward recomputing each frame's solve: the WY solve as
+    ``_solve_ops``; the transposed solve and dA = stril(Y Xᵀ) (N(N-1)
+    times d_v + d_k each, fp32 operands), dA K (K exact when bf16) and
+    dAᵀ(ηK) (N(N-1) d_k each), and seven N × d_k × d_v products: K g and
+    Qᵀ dO (K, Q exact when bf16), dO S̃ᵀ, W S̃, (K g) S̃ᵀ, Wᵀ(K g) and M gᵀ.
+    What a design repeats (A's blocks, K g, S̃ gᵀ in the adjoint) is its
+    own work, not counted."""
+    frames, nn = b * h * t, n * (n - 1)
+    return _solve_ops(b, h, t, n, dk, dv, exact) + frames * (
+        nn * (6 * (dk + dv) + dk * (_passes(False, exact) + 3))
+        + 2 * n * dk * dv * (2 * _passes(exact, False) + 5 * 3))
 
 
 def _nbytes(*xs) -> int:
@@ -192,19 +198,17 @@ def _nbytes(*xs) -> int:
                 for x in xs if x is not None}.values())
 
 
-def _bound(label: str, ms: float, ops: tuple[int, int], nbytes: int) -> dict:
+def _bound(label: str, ms: float, flops: int, nbytes: int) -> dict:
     """The least time the card could take for the work (ms): the larger of
-    the operations, each unit's at its peak (fp32 FMAs at 67 TFLOP/s plus
-    TF32 passes at 495), and the bytes over the memory rate.  Prints it
-    beside the measured time, with what bounds it and the share."""
-    fma, tc = ops
-    t_ops = 1e3 * (fma / PEAK_FP32_FLOPS + tc / PEAK_TF32_FLOPS)
+    the operations (TF32 passes at 495 TFLOP/s) and the bytes over the
+    memory rate.  Prints it beside the measured time, with what bounds it
+    and the share."""
+    t_ops = 1e3 * flops / PEAK_TF32_FLOPS
     t_bytes = 1e3 * nbytes / PEAK_BYTES_PER_S
     bound, by = max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
-    print(f"bound [{label}]: {ms:.4f} ms against {bound:.4f} ms ({fma / 1e9:.3f} "
-          f"GFLOP on fp32 FMAs + {tc / 1e9:.3f} GFLOP of TF32 passes -> {t_ops:.4f} "
-          f"ms; {nbytes / 1e6:.2f} MB -> {t_bytes:.4f} ms; bound by {by}), share "
-          f"{bound / ms:.3f}")
+    print(f"bound [{label}]: {ms:.4f} ms against {bound:.4f} ms ({flops / 1e9:.3f} "
+          f"GFLOP of TF32 passes -> {t_ops:.4f} ms; {nbytes / 1e6:.2f} MB -> "
+          f"{t_bytes:.4f} ms; bound by {by}), share {bound / ms:.3f}")
     return {"ms": ms, "bound_ms": bound, "bound_by": by}
 
 
@@ -274,11 +278,14 @@ def phase_build() -> None:
             raise AssertionError(f"{what}: source {c_val}, wrapper {py_val}")
     for dk in (8, 32, 40, 64, 128):
         for bf16 in (0, 1):
-            c_val = fwd.gdr_chain_smem_bytes(dk, bf16)
-            if c_val != gdr_cuda.chain_smem_bytes(dk, bool(bf16)):
-                raise AssertionError(f"chain smem at d_k={dk} bf16={bf16}: source "
-                                     f"{c_val}, wrapper "
-                                     f"{gdr_cuda.chain_smem_bytes(dk, bool(bf16))}")
+            for what, c_val, py_val in (
+                    ("chain", fwd.gdr_chain_smem_bytes(dk, bf16),
+                     gdr_cuda.chain_smem_bytes(dk, bool(bf16))),
+                    ("bwd chain", bwd.gdr_bwd_chain_smem_bytes(dk, bf16),
+                     gdr_cuda.bwd_chain_smem_bytes(dk, bool(bf16)))):
+                if c_val != py_val:
+                    raise AssertionError(f"{what} smem at d_k={dk} bf16={bf16}: "
+                                         f"source {c_val}, wrapper {py_val}")
     for n, dk, dv in ((49, 64, 64), (7, 8, 8), (64, 64, 64), (137, 64, 64),
                       (157, 64, 64), (158, 64, 64), (256, 64, 64),
                       (256, 32, 64), (301, 64, 64), (71, 128, 128)):
@@ -287,11 +294,11 @@ def phase_build() -> None:
              gdr_cuda.wy_smem_bytes(n, dk, dv)),
             ("solve panels", fwd.gdr_wy_uses_panels(n, dk, dv),
              int(gdr_cuda.wy_uses_panels(n, dk, dv))),
-            ("bwd smem", bwd.gdr_bwd_smem_bytes(n, dk, dv),
-             gdr_cuda.bwd_smem_bytes(n, dk, dv)),
-            ("bwd scratch", bwd.gdr_bwd_scratch_floats(n, dk, dv),
-             gdr_cuda.bwd_scratch_floats(n, dk, dv)),
-        ]
+            ("bwd solve smem", bwd.gdr_bwd_solve_smem_bytes(n, dk, dv),
+             gdr_cuda.wy_smem_bytes(n, dk, dv)),
+        ] + [(f"bwd frames smem bf16={bf16}",
+              bwd.gdr_bwd_frames_smem_bytes(n, dk, dv, bf16),
+              gdr_cuda.bwd_frames_smem_bytes(n, dk, dv, bool(bf16))) for bf16 in (0, 1)]
         for what, c_val, py_val in pairs:
             if c_val != py_val:
                 raise AssertionError(f"{what} at {(n, dk, dv)}: source {c_val}, "
@@ -426,6 +433,88 @@ def phase_fused_vs_stored(device) -> None:
     _check_rel("autograd fused vs stored [train bf16], fp32 gradients",
                ("dbeta", "dalpha", "ds0"), grads["fused"][3:],
                grads["stored"][3:], BWD_REL)
+
+
+def phase_bwd_phases_vs_plain(device) -> float:
+    """Each of the backward's three phases against its plain version at
+    every GRAD_CASES shape, from one launch that keeps its scratch
+    (``gdr_cuda._bwd_launch``): the solve's U, W against ``wy_transform``;
+    the reverse dS chain's g, dS̃ and dS₀ against ``gdr_bwd_chain`` fed the
+    kernel's W; the per-frame adjoint's gradients against
+    ``gdr_bwd_frames`` fed the kernel's U, W, g and dS̃.  fp32 math on both
+    sides, summation order only.  Returns the worst absolute error."""
+    import torch
+    from gdkvm_tpu_torch.core import gdr
+    from gdkvm_tpu_torch.ops import gdr_cuda
+    gen = torch.Generator(device=device).manual_seed(8)
+    worst = 0.0
+    for name, shape, dt in GRAD_CASES:
+        q, k, v, beta, alpha, s0 = _gdr_inputs(gen, *shape, getattr(torch, dt), device)
+        eta = torch.sigmoid(torch.randn(beta.shape, device=device, generator=gen))
+        states = gdr.gdr_chunked_residuals(q, k, v, beta, alpha, s0, eta)[2]
+        do = torch.randn(q.shape[:4] + (shape[5],), device=device, generator=gen)
+        ds_t = torch.randn(s0.shape, device=device, generator=gen)
+        grads, (u, w, g, dsd) = gdr_cuda._bwd_launch(q, k, v, beta, eta, alpha,
+                                                    states, do, ds_t)
+        label = f"[{name}] {shape} {dt}"
+        worst = max(worst, _check_rel(f"bwd solve vs plain {label}", ("U", "W"),
+                                      (u, w), gdr.wy_transform(k, v, beta, eta),
+                                      BWD_REL))
+        g_ds0 = (g, dsd, grads[6])
+        want = gdr.gdr_bwd_chain(k, w, q.float().transpose(-1, -2) @ do, alpha, ds_t)
+        worst = max(worst, _check_rel(f"bwd reverse chain vs plain {label}",
+                                      ("g", "ds_dec", "ds0"), g_ds0, want, BWD_REL))
+        want = gdr.gdr_bwd_frames(k, v, beta, eta, alpha, states, u, w, do, g, dsd)
+        worst = max(worst, _check_rel(
+            f"bwd per-frame adjoint vs plain {label}",
+            ("dq", "dk", "dv", "dbeta", "deta", "dalpha"), grads[:6], want, BWD_REL))
+    return worst
+
+
+# bf16 residuals (GDKVM_GDR_SAVE_DTYPE=bf16) against the plain forward's
+# rounding of its fp32 residuals: the two fp32 values differ in summation
+# order, so a value near a rounding boundary may round to the neighbouring
+# bf16 value, one ulp, at most 2^-8 of the largest element.
+SAVE_BF16_REL = 2.0 ** -8
+
+
+def phase_bf16_residuals(device) -> None:
+    """The forward kernel's bf16 residuals (S_{t-1}, U, W) against
+    ``gdr_chunked_residuals(save_bf16=True)`` at the training shape, and
+    the stored backward through the autograd Function under
+    GDKVM_GDR_SAVE_DTYPE=bf16 against =f32."""
+    import torch
+    from gdkvm_tpu_torch.core import gdr
+    from gdkvm_tpu_torch.ops import gdr_cuda
+    gen = torch.Generator(device=device).manual_seed(9)
+    args = _gdr_inputs(gen, *TRAIN_SHAPE, torch.bfloat16, device)
+    got = gdr_cuda.gdr_fwd_cuda_residuals(*args, save_bf16=True)
+    want = gdr.gdr_chunked_residuals(*args, save_bf16=True)
+    torch.cuda.synchronize()
+    if [x.dtype for x in got[2:]] != [torch.bfloat16] * 3:
+        raise AssertionError(f"bf16 residual dtypes {[x.dtype for x in got[2:]]}")
+    _check_rel("fwd bf16 residuals vs plain rounding [train bf16]", ("o", "s_T"),
+               got[:2], want[:2], FWD_REL)
+    _check_rel("fwd bf16 residuals vs plain rounding [train bf16]",
+               ("states", "U", "W"), [x.float() for x in got[2:]],
+               [x.float() for x in want[2:]], SAVE_BF16_REL)
+    w_o = torch.randn(TRAIN_SHAPE[:4] + (TRAIN_SHAPE[5],), device=device, generator=gen)
+    grads = {}
+    os.environ["GDKVM_GDR_BWD"] = "stored"
+    for save in ("bf16", "f32"):
+        os.environ["GDKVM_GDR_SAVE_DTYPE"] = save
+        ins = [x.clone().requires_grad_(True) for x in args]
+        o, s = gdr_cuda.gdr_kernel(*ins)
+        grads[save] = torch.autograd.grad((o * w_o).sum() + (s * s).sum(), ins)
+    os.environ.pop("GDKVM_GDR_BWD")
+    os.environ.pop("GDKVM_GDR_SAVE_DTYPE")
+    torch.cuda.synchronize()
+    rels = {n: _rel(a.float(), b.float()) for n, a, b in zip(
+        ("dq", "dk", "dv", "dbeta", "dalpha", "ds0"), grads["bf16"], grads["f32"])}
+    print("stored backward, bf16 against fp32 residuals [train bf16]: "
+          + " ".join(f"{n} {r:.2e}" for n, r in rels.items()) + " (max|Δ|/max|f32|)")
+    if not all(r < 3e-2 for r in rels.values()):
+        raise AssertionError(f"bf16 residuals move the gradients by {rels}")
 
 
 # The chain kernel against its plain version, and the chain split against
@@ -701,8 +790,7 @@ def _stream_profile(model, device, warmup: int = 3, chunks: int = 3) -> None:
         print(f"  {us / total:7.2%} {us / chunks / 1e3:8.3f} ms/chunk  {name[:110]}")
 
 
-_ZERO = {"fwd_kernel": 0, "chain_kernel": 0, "bwd_kernel": 0,
-         "residual_fwd": 0, "plain_fwd": 0, "plain_chain": 0, "plain_bwd": 0,
+_ZERO = {"fwd_kernel": 0, "chain_kernel": 0, "bwd_kernel": 0, "residual_fwd": 0, "plain_fwd": 0, "plain_chain": 0, "plain_bwd": 0,
          "stored_bwd": 0}
 
 
@@ -866,7 +954,8 @@ def phase_train_grads(device) -> None:
 
 def phase_train_times(device) -> dict:
     """Steps/s and frames/s of training on one fixed batch, stored, fused
-    and chunked, timed in turns; peak device memory of each."""
+    and chunked, timed in turns; peak device memory of each, and the
+    device kernel time of a step (torch.profiler)."""
     import dataclasses
     import torch
     from gdkvm_tpu_torch.models.gdkvm import train_model_config
@@ -880,7 +969,7 @@ def phase_train_times(device) -> dict:
     frames = cfg.train.batch_size * cfg.data.clip_len
     order = ("stored", "fused", "chunked", "chunked", "fused", "stored")
     rates = {m: [] for m in order}
-    peak = {}
+    peak, device_ms = {}, {}
     for mode in order:
         os.environ["GDKVM_GDR_BWD"] = "stored" if mode == "chunked" else mode
         state = states["chunked" if mode == "chunked" else "kernel"]
@@ -896,7 +985,12 @@ def phase_train_times(device) -> dict:
         torch.cuda.synchronize()
         rates[mode].append(n / (time.perf_counter() - t0))
         peak[mode] = torch.cuda.max_memory_allocated(device) / 2**20
+        if mode not in device_ms:
+            device_ms[mode] = _profiled_ms(lambda: train_step(state, batch, cfg), iters=5)
     os.environ.pop("GDKVM_GDR_BWD")
+    print("train device kernel time a step (torch.profiler, 5 steps): "
+          + ", ".join(f"{m} {'not measured' if t is None else f'{t:.3f} ms'}"
+                      for m, t in device_ms.items()))
     print(f"train steps/s in turns ({', '.join(order)}), 8 steps each after 2: "
           + " ".join(f"{rates[m][i]:.3f}" for m, i in
                      zip(order, (0, 0, 0, 1, 1, 1))))
@@ -937,13 +1031,25 @@ def phase_train_kernel_times(device) -> dict:
     print(f"GDR bwd at {shape}: kernel {b_ms:.4f} ms, plain (gdr_bwd_ref) "
           f"{b_plain:.4f} ms ({b_spread}); stored backward (plain torch ops) "
           f"{stored_ms:.4f} ms")
+    # Each phase's device time inside the backward, by torch.profiler.
+    bwd = lambda: gdr_cuda.gdr_bwd_cuda(*args)
+    phases = {p: _profiled_ms(bwd, match=m) for p, m in (
+        ("solve", "wy_kernel"), ("chain", "rev_chain_kernel"),
+        ("frames", "frame_adjoint_kernel"))}
+    if None in phases.values():
+        print("GDR bwd phases: no device time traced (not measured)")
+    else:
+        print(f"GDR bwd at {shape} by phase (profiled device time a call, mean of "
+              f"20): solve {phases['solve']:.4f} + reverse chain {phases['chain']:.4f} "
+              f"+ per-frame adjoint {phases['frames']:.4f} = "
+              f"{sum(phases.values()):.4f} ms")
     fwd_out = gdr_cuda.gdr_fwd_cuda_residuals(q, k, v, beta, alpha, s0)
     bwd_out = gdr_cuda.gdr_bwd_cuda(*args)
     return {"fwd": dict(_bound("fwd+residuals, training", f_ms,
                                _fwd_ops(*TRAIN_SHAPE, exact=True),
                                _nbytes(q, k, v, beta, alpha, s0, *fwd_out)),
                         plain_ms=f_plain),
-            "bwd": dict(_bound("bwd, training", b_ms, _bwd_ops(*TRAIN_SHAPE),
+            "bwd": dict(_bound("bwd, training", b_ms, _bwd_ops(*TRAIN_SHAPE, exact=True),
                                _nbytes(*args, *bwd_out)),
                         plain_ms=b_plain, stored_ms=stored_ms)}
 
@@ -1345,6 +1451,8 @@ def main() -> int:
     err_fwd = phase_kernel_vs_plain(device)
     err_res, err_bwd = phase_residuals_and_bwd(device)
     phase_fused_vs_stored(device)
+    err_bwd = max(err_bwd, phase_bwd_phases_vs_plain(device))
+    phase_bf16_residuals(device)
     err_chain = phase_chain_vs_plain(device)
     err_fwd = max(err_fwd, phase_solve_vs_plain(device))
     stream = phase_model(device)

@@ -22,7 +22,10 @@ Port of gdkvm_tpu/core/gdr.py.  Per (batch, head) the state
 - :func:`gdr_bwd_ref` — the backward as a reverse scan applying
   :func:`frame_adjoint` frame by frame: the plain version of the CUDA
   backward kernel.  :func:`gdr_bwd_stored` — the same adjoint from the
-  stored residuals, batched over all frames: the default backward.
+  stored residuals, batched over all frames: the default backward, built
+  from :func:`gdr_bwd_chain` (the reverse dS chain) and
+  :func:`gdr_bwd_frames` (the per-frame adjoint), the plain versions of
+  the backward kernel's second and third phases.
 
 (B, H) are written out as leading batch dims.  All math is fp32 whatever
 the input dtype, and the state is fp32.
@@ -139,19 +142,24 @@ def gdr_chain(q: Tensor, k: Tensor, u: Tensor, w: Tensor, alpha: Tensor,
 
 def gdr_chunked_residuals(q: Tensor, k: Tensor, v: Tensor, beta: Tensor,
                           alpha: Tensor, s0: Tensor,
-                          eta: Optional[Tensor] = None
+                          eta: Optional[Tensor] = None, *,
+                          save_bf16: bool = False
                           ) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
     """Chunk-form scan that also returns the backward's residuals.
 
     → (o, s_T, states, u, w): ``states`` (B, H, T, d_k, d_v) holds S_{t-1}
     for every frame, before its decay; ``u`` (…, N, d_v) and ``w``
-    (…, N, d_k) are each frame's WY solve.  All fp32.  It is the plain
-    version of the CUDA forward kernel with its residual outputs: the
-    batched solves, then the chain of :func:`gdr_chain`.
+    (…, N, d_k) are each frame's WY solve.  fp32, or with ``save_bf16``
+    (``GDKVM_GDR_SAVE_DTYPE=bf16``) the three residuals rounded to bf16
+    after an fp32 scan.  It is the plain version of the CUDA forward kernel
+    with its residual outputs: the batched solves, then the chain of
+    :func:`gdr_chain`.
     """
     CHUNKED_CALLS.n += 1
     u, w = wy_transform(k, v, beta, eta)            # (B,H,T,N,dv), (…,dk)
     o, s_t, states = _chain_loop(q, k, u, w, alpha, s0, True)
+    if save_bf16:
+        states, u, w = (x.to(torch.bfloat16) for x in (states, u, w))
     return o, s_t, states, u, w
 
 
@@ -253,25 +261,55 @@ def gdr_bwd_stored(q: Tensor, k: Tensor, v: Tensor, beta: Tensor, eta: Tensor,
     w (B, H, T, N, d_k).  → the same seven gradients, fp32.
     """
     BWD_STORED_CALLS.n += 1
+    # Residuals stored in bf16 (GDKVM_GDR_SAVE_DTYPE=bf16) upcast once here.
     q, k, v, beta, eta, alpha, states, u, w, do = map(
         _f32, (q, k, v, beta, eta, alpha, states, u, w, do))
-    dv_dim = v.shape[-1]
-    e2 = eta[..., None]
-    sdec = alpha[..., None, None] * states                # S̃_t (B,H,T,dk,dv)
-    qdo = q.transpose(-1, -2) @ do                        # Qᵀ dO per frame
+    g, ds_dec, ds0 = gdr_bwd_chain(k, w, q.transpose(-1, -2) @ do, alpha, ds_t)
+    return (*gdr_bwd_frames(k, v, beta, eta, alpha, states, u, w, do, g,
+                            ds_dec), ds0)
 
-    # The reverse dS chain, the only sequential piece: g = dS_t per frame.
+
+def gdr_bwd_chain(k: Tensor, w: Tensor, qdo: Tensor, alpha: Tensor,
+                  ds_t: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+    """The reverse dS chain, the backward's only sequential piece: from
+    g = dS_T down, per frame ``dS̃_t = g_t + Q_tᵀ dO_t − W_tᵀ (K_t g_t)`` and
+    ``g_{t-1} = α_t dS̃_t``.
+
+    k (B, H, T, N, d_k); w (…, N, d_k); qdo (B, H, T, d_k, d_v) = Qᵀ dO per
+    frame; alpha (B, H, T); ds_t (B, H, d_k, d_v).  → (g, ds_dec, ds0): g
+    and ds_dec (B, H, T, d_k, d_v) hold dS_t and dS̃_t of every frame, ds0
+    the cotangent of S_0.  All fp32.  The plain version of the CUDA
+    backward's second phase.
+    """
+    k, w, qdo, alpha = map(_f32, (k, w, qdo, alpha))
     g = _f32(ds_t)
-    gs, ds_decs = [None] * q.shape[2], [None] * q.shape[2]
-    for t in reversed(range(q.shape[2])):
+    gs, ds_decs = [None] * k.shape[2], [None] * k.shape[2]
+    for t in reversed(range(k.shape[2])):
         kg_t = k[:, :, t] @ g
         ds_decs[t] = g + qdo[:, :, t] - w[:, :, t].transpose(-1, -2) @ kg_t
         gs[t] = g
         g = alpha[:, :, t, None, None] * ds_decs[t]
-    ds0 = g
-    g = torch.stack(gs, dim=2)
-    ds_dec = torch.stack(ds_decs, dim=2)
+    return torch.stack(gs, dim=2), torch.stack(ds_decs, dim=2), g
 
+
+def gdr_bwd_frames(k: Tensor, v: Tensor, beta: Tensor, eta: Tensor,
+                   alpha: Tensor, states: Tensor, u: Tensor, w: Tensor,
+                   do: Tensor, g: Tensor, ds_dec: Tensor
+                   ) -> Tuple[Tensor, ...]:
+    """The per-frame adjoint, batched over all (B, H, T) frames, given each
+    frame's WY solve X = [U | W], its dS_t = g and its dS̃_t (from
+    :func:`gdr_bwd_chain`): KG, dQ, M, dX, Y = (I + A)⁻ᵀ dX, dA and the
+    gradients.  No carry, so every frame is independent.
+
+    Arguments as :func:`gdr_bwd_stored` without q (dQ = dO S̃ᵀ needs
+    none), plus g and ds_dec (B, H, T, d_k, d_v).  → (dq, dk, dv, dbeta, deta, dalpha), fp32.  The plain version
+    of the CUDA backward's third phase.
+    """
+    k, v, beta, eta, alpha, states, u, w, do, g, ds_dec = map(
+        _f32, (k, v, beta, eta, alpha, states, u, w, do, g, ds_dec))
+    dv_dim = v.shape[-1]
+    e2 = eta[..., None]
+    sdec = alpha[..., None, None] * states                # S̃_t (B,H,T,dk,dv)
     kg = k @ g
     ke = k * e2
     a = torch.tril(ke @ k.transpose(-1, -2), diagonal=-1)
@@ -287,7 +325,7 @@ def gdr_bwd_stored(q: Tensor, k: Tensor, v: Tensor, beta: Tensor, eta: Tensor,
     dbeta = (y_v * v).sum(-1)
     deta = (dke * k).sum(-1)
     dalpha = (ds_dec * states).sum((-2, -1))
-    return dq, dk, beta[..., None] * y_v, dbeta, deta, dalpha, ds0
+    return dq, dk, beta[..., None] * y_v, dbeta, deta, dalpha
 
 
 def gdr_write_chunk(s: Tensor, k: Tensor, v: Tensor, beta: Tensor) -> Tensor:

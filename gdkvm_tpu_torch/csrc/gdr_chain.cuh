@@ -12,8 +12,9 @@
 //   S = S~ + K_t^T (U_t - W_t S~)     (the frame's N delta-rule writes)
 //
 // S_T is written after the last frame, and S_{t-1} of every frame (before
-// its decay) when `states` is not null.  S, O and every sum are fp32; u and
-// w are fp32; q and k bf16 or fp32.
+// its decay) when `states` is not null, in fp32 or (the stored backward's
+// GDKVM_GDR_SAVE_DTYPE=bf16) bf16.  S, O and every sum are fp32; u and w are
+// fp32; q and k bf16 or fp32.
 //
 // What bounds it on this card: not FLOPs or bytes (the serving shape,
 // B=8 H=4 T=16 N=49 d=64, is 0.62 GFLOP, ~3 us as 3xTF32 passes at the
@@ -155,7 +156,8 @@ chain_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const float* __restrict__ u, const float* __restrict__ w,
              const float* __restrict__ alpha, const float* __restrict__ s0,
              float* __restrict__ o, float* __restrict__ s_out,
-             float* __restrict__ states, int n_t, int n, int dk, int dv) {
+             void* __restrict__ states, int states_bf16, int n_t, int n, int dk,
+             int dv) {
   constexpr bool kExact = sizeof(T) == 2;   // bf16 q, k: exact in TF32
   extern __shared__ __align__(16) unsigned char chain_smem[];
   const int d16 = round16(dk);
@@ -220,11 +222,18 @@ chain_kernel(const T* __restrict__ q, const T* __restrict__ k,
   each([&](int j, int e, int d, int c, bool in) {
     s[j][e] = in ? s0p[d * dv + c0 + c] : 0.f;
   });
-  // Frame start: save S_{t-1}, decay by a_t, publish S~.
+  // Frame start: save S_{t-1} (fp32, or bf16 when states_bf16), decay by
+  // a_t, publish S~.
   auto begin_frame = [&](int t, float a_t) {
-    float* stp = states ? states + (bh * n_t + t) * dk * dv : nullptr;
+    const size_t st0 = (bh * n_t + t) * dk * dv;
     each([&](int j, int e, int d, int c, bool in) {
-      if (stp && in) stp[d * dv + c0 + c] = s[j][e];
+      if (states && in) {
+        const size_t at = st0 + d * dv + c0 + c;
+        if (states_bf16)
+          static_cast<__nv_bfloat16*>(states)[at] = __float2bfloat16(s[j][e]);
+        else
+          static_cast<float*>(states)[at] = s[j][e];
+      }
       s[j][e] *= a_t;
       if (d < d16) st[c * lds + d] = s[j][e];
     });
@@ -322,8 +331,8 @@ chain_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int kStages>
 int launch_stages(const void* q, const void* k, const void* u, const void* w,
                   const void* alpha, const void* s0, void* o, void* s_out,
-                  void* states, int b, int h, int t, int n, int dk, int dv,
-                  cudaStream_t stream) {
+                  void* states, int states_bf16, int b, int h, int t, int n,
+                  int dk, int dv, cudaStream_t stream) {
   const size_t bytes = smem_bytes(dk, sizeof(T), kStages);
   cudaError_t err = cudaFuncSetAttribute(
       chain_kernel<T, kStages>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -334,24 +343,25 @@ int launch_stages(const void* q, const void* k, const void* u, const void* w,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const float*>(u), static_cast<const float*>(w),
       static_cast<const float*>(alpha), static_cast<const float*>(s0),
-      static_cast<float*>(o), static_cast<float*>(s_out),
-      static_cast<float*>(states), t, n, dk, dv);
+      static_cast<float*>(o), static_cast<float*>(s_out), states, states_bf16, t,
+      n, dk, dv);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launch the chain on `stream`; returns a cudaError_t.
+// Launch the chain on `stream`; `states` (S_{t-1} per frame, or null) is
+// bf16 when states_bf16 is nonzero, else fp32.  Returns a cudaError_t.
 template <typename T>
 int launch(const void* q, const void* k, const void* u, const void* w,
            const void* alpha, const void* s0, void* o, void* s_out,
-           void* states, int b, int h, int t, int n, int dk, int dv,
-           cudaStream_t stream) {
+           void* states, int states_bf16, int b, int h, int t, int n, int dk,
+           int dv, cudaStream_t stream) {
   if (dk < 1 || dk > kMaxDk || dv < 1 || n < 1 || t < 1 || b * h < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if (ring_stages(dk, sizeof(T)) == 3)
-    return launch_stages<T, 3>(q, k, u, w, alpha, s0, o, s_out, states, b, h,
-                               t, n, dk, dv, stream);
-  return launch_stages<T, 2>(q, k, u, w, alpha, s0, o, s_out, states, b, h, t,
-                             n, dk, dv, stream);
+    return launch_stages<T, 3>(q, k, u, w, alpha, s0, o, s_out, states,
+                               states_bf16, b, h, t, n, dk, dv, stream);
+  return launch_stages<T, 2>(q, k, u, w, alpha, s0, o, s_out, states,
+                             states_bf16, b, h, t, n, dk, dv, stream);
 }
 
 }  // namespace chain

@@ -1,15 +1,13 @@
-// Building blocks shared by gdr_fwd.cu and gdr_bwd.cu: a register-tiled
-// product over the thread block, and the panel-blocked unit-triangular
-// solves of the GDR's WY system.
+// Building blocks of the WY solve (gdr_wy.cuh, which the forward and the
+// backward share): a register-tiled product over the thread block, and the
+// panel-blocked unit-triangular solve of the GDR's WY system.
 //
-// In the solves A = strict_tril(diag(eta) K K^T) is never formed.  The rows
+// In the solve A = strict_tril(diag(eta) K K^T) is never formed.  The rows
 // are taken in panels of kPanel; the rows of earlier panels enter a panel
 // through one dk x m matrix held in shared memory,
 //
-//   forward     (I + A)   X = R:  x_r = r_r - eta_r k_r^T G - (in-panel rows),
-//               G = sum over solved rows j of k_j x_j^T;
-//   transposed  (I + A)^T Y = R:  y_r = r_r - k_r^T H - (in-panel rows),
-//               H = sum over solved rows j of eta_j k_j y_j^T,
+//   (I + A) X = R:  x_r = r_r - eta_r k_r^T G - (in-panel rows),
+//                   G = sum over solved rows j of k_j x_j^T,
 //
 // and the rows of the same panel through its kPanel x kPanel block of A, by
 // substitution with one thread per right-hand-side column.  Only that
@@ -82,22 +80,17 @@ __host__ __device__ inline size_t panel_floats(int dk, int m) {
          kPanel * kPanel + static_cast<size_t>(kPanel) * m + kPanel;
 }
 
-// Solve in place: x (n, m) row-major, in shared or global memory, holds the
-// right-hand side on entry and the solution on return.  K's row r is
-// k[r * k_ld : r * k_ld + dk].  ws: panel_floats(dk, m) floats of shared
-// memory.  With kTrans and t2 non-null, also
-//   t2[r] = -(sum over j > r of eta_j k_j y_j^T) xo_r = (dA^T (eta K))[r]
-// for the adjoint, where xo (n, m) is the forward solve and xb a further
-// kPanel * (m + 1) floats of shared memory.  Every thread of the block
-// calls it; it begins and ends with a barrier.
-template <bool kTrans, typename KT>
+// Solve (I + A) X = R in place: x (n, m) row-major, in shared or global
+// memory, holds the right-hand side on entry and the solution on return.
+// K's row r is k[r * k_ld : r * k_ld + dk].  ws: panel_floats(dk, m)
+// floats of shared memory.  Every thread of the block calls it; it begins
+// and ends with a barrier.
+template <typename KT>
 __device__ void panel_solve(float* x, int n, int m, const KT* k, int k_ld,
-                            const float* eta, int dk, float* ws,
-                            float* t2 = nullptr, const float* xo = nullptr,
-                            float* xb = nullptr) {
+                            const float* eta, int dk, float* ws) {
   const int ldp = dk + 1;                // kpan's row stride
   const int lda = m + 1;                 // acc's and xb's row stride
-  float* acc = ws;                       // G or H (dk, lda)
+  float* acc = ws;                       // G (dk, lda)
   float* kpan = acc + dk * lda;          // (kPanel, ldp)
   float* ap = kpan + kPanel * ldp;       // (kPanel, kPanel), A's block
   float* pb = ap + kPanel * kPanel;      // (kPanel, m), the panel's rows
@@ -109,7 +102,7 @@ __device__ void panel_solve(float* x, int n, int m, const KT* k, int k_ld,
   for (int i = tid; i < dk * lda; i += nthr) acc[i] = 0.f;
   const int n_pan = (n + kPanel - 1) / kPanel;
   for (int pi = 0; pi < n_pan; ++pi) {
-    const int lo = (kTrans ? n_pan - 1 - pi : pi) * kPanel;
+    const int lo = pi * kPanel;
     const int np = min(kPanel, n - lo);
     const size_t off = static_cast<size_t>(lo) * m;
     __syncthreads();  // the previous panel is done with the buffers
@@ -120,12 +113,6 @@ __device__ void panel_solve(float* x, int n, int m, const KT* k, int k_ld,
     }
     for (int i = tid; i < np; i += nthr) epan[i] = eta[lo + i];
     for (int i = tid; i < np * m; i += nthr) pb[i] = x[off + i];
-    if (t2) {
-      for (int i = tid; i < np * m; i += nthr) {
-        const int r = i / m, c = i - r * m;
-        xb[r * lda + c] = xo[off + i];
-      }
-    }
     __syncthreads();
 
     // A's block, and the earlier panels' contribution.
@@ -136,52 +123,23 @@ __device__ void panel_solve(float* x, int n, int m, const KT* k, int k_ld,
     block_mm<4, 4>(
         np, m, dk, [&](int i, int d) { return kpan[i * ldp + d]; },
         [&](int d, int c) { return acc[d * lda + c]; },
-        [&](int i, int c, float s) { pb[i * m + c] -= kTrans ? s : epan[i] * s; });
+        [&](int i, int c, float s) { pb[i * m + c] -= epan[i] * s; });
     __syncthreads();
 
     // In-panel substitution, one column per thread.
     for (int c = tid; c < m; c += nthr) {
-      if (!kTrans) {
-        for (int r = 1; r < np; ++r) {
-          float v = pb[r * m + c];
-          for (int j = 0; j < r; ++j) v = fmaf(-ap[r * kPanel + j], pb[j * m + c], v);
-          pb[r * m + c] = v;
-        }
-      } else {
-        for (int r = np - 2; r >= 0; --r) {
-          float v = pb[r * m + c];
-          for (int j = r + 1; j < np; ++j) v = fmaf(-ap[j * kPanel + r], pb[j * m + c], v);
-          pb[r * m + c] = v;
-        }
+      for (int r = 1; r < np; ++r) {
+        float v = pb[r * m + c];
+        for (int j = 0; j < r; ++j) v = fmaf(-ap[r * kPanel + j], pb[j * m + c], v);
+        pb[r * m + c] = v;
       }
     }
     __syncthreads();
 
-    if (t2) {
-      // ap[j][r] <- y_j . xo_r for j > r within the panel; then
-      // t2_r = -H xo_r - sum_{j > r} (y_j . xo_r) eta_j k_j, H still
-      // excluding this panel.
-      block_mm<4, 1>(
-          np, np, m, [&](int j, int c) { return pb[j * m + c]; },
-          [&](int c, int r) { return xb[r * lda + c]; },
-          [&](int j, int r, float s) { ap[j * kPanel + r] = j > r ? s : 0.f; });
-      __syncthreads();
-      block_mm<4, 2>(
-          np, dk, m, [&](int r, int c) { return xb[r * lda + c]; },
-          [&](int c, int d) { return acc[d * lda + c]; },
-          [&](int r, int d, float s) {
-            for (int j = r + 1; j < np; ++j)
-              s = fmaf(ap[j * kPanel + r] * epan[j], kpan[j * ldp + d], s);
-            t2[static_cast<size_t>(lo + r) * dk + d] = -s;
-          });
-      __syncthreads();
-    }
-
     // Write the panel back and add it to the accumulator.
     for (int i = tid; i < np * m; i += nthr) x[off + i] = pb[i];
     block_mm<4, 4>(
-        dk, m, np,
-        [&](int d, int r) { return kTrans ? epan[r] * kpan[r * ldp + d] : kpan[r * ldp + d]; },
+        dk, m, np, [&](int d, int r) { return kpan[r * ldp + d]; },
         [&](int r, int c) { return pb[r * m + c]; },
         [&](int d, int c, float s) { acc[d * lda + c] += s; });
   }

@@ -12,7 +12,12 @@
   every frame's WY solve U, W from one batched solve
   (``core.gdr.wy_transform``), with S_{t-1} per frame on request.
 - :func:`gdr_bwd_cuda` launches ``csrc/gdr_bwd.cu``, the port of
-  ``_gdr_bwd_kernel``: the reverse scan with dS on chip.
+  ``_gdr_bwd_kernel``: one C call, three kernels on the current stream —
+  the WY solve of every frame (``csrc/gdr_wy.cuh``, the forward's), the
+  reverse dS chain (the only serial part, 128 blocks at the training
+  shape), and the per-frame adjoint (one block a frame).  ``_bwd_launch``
+  also returns the phases' scratch (U, W, g, dS̃), so that each phase can
+  be held against its plain version in ``core.gdr``.
 - ``GDKVM_GDR_FWD`` picks the forward split, as in the JAX package:
   ``monolith`` (default; ``gdr_fwd.cu``'s own solve kernel) or ``chain``
   (the batched solve, then the chain alone).  It is read each
@@ -29,7 +34,9 @@
     ``core.gdr.gdr_chunked``.
 
   In chain mode U and W come from the batched solve and the chain kernel
-  writes S_{t-1}.
+  writes S_{t-1}.  ``GDKVM_GDR_SAVE_DTYPE=bf16`` (default ``f32``) makes
+  the monolith forward under ``stored`` write S_{t-1}, U and W in bf16,
+  as the JAX package's does; the chain split keeps them fp32.
 
 - :func:`gdr_kernel` is ``gdr_impl="pallas"``: the kernels, or raise.
   :func:`gdr_fwd` is ``gdr_impl="auto"``: the kernels for CUDA tensors, the
@@ -61,7 +68,7 @@ Tensor = torch.Tensor
 # Launches of each CUDA kernel (counted where it launches, and nowhere else).
 LAUNCHES = gdr.CallCount()        # gdr_fwd (solve + chain in one call)
 CHAIN_LAUNCHES = gdr.CallCount()  # gdr_chain, with or without S_{t-1}
-BWD_LAUNCHES = gdr.CallCount()    # gdr_bwd.cu
+BWD_LAUNCHES = gdr.CallCount()    # gdr_bwd.cu: the backward (three kernels in one call)
 # Of the forward launches above (either kernel), those that wrote the
 # backward's residuals: an inference path shows 0 here.
 RESIDUAL_LAUNCHES = gdr.CallCount()
@@ -147,19 +154,63 @@ def fwd_launch_plan(b: int, h: int, t: int, n: int, dk: int, dv: int,
     return plan
 
 
-def bwd_smem_bytes(n: int, dk: int, dv: int) -> int:
-    """Shared memory of one backward block: S̃, dS, dS̃ (rows padded to
-    d_v+1), padded K, β, η, 8 warp partials, the panel workspace, and a
-    panel's X rows (padded) and d(ηK) rows (mirrors ``smem_floats`` in
-    ``csrc/gdr_bwd.cu``)."""
-    m = dv + dk
-    return 4 * (3 * dk * (dv + 1) + n * (dk + 1) + 2 * n + 8
-                + _panel_floats(dk, m) + PANEL * (m + 1) + PANEL * dk)
+KLDM = CHAIN_COLS + 8  # row stride (floats) of the chains' column tiles
 
 
-def bwd_scratch_floats(n: int, dk: int, dv: int) -> int:
-    """Scratch of one backward block: X, Y, M, K g, dAᵀ(ηK)."""
-    return 2 * n * (dv + dk) + 2 * n * dv + n * dk
+def bwd_chain_smem_bytes(dk: int, bf16: bool) -> int:
+    """Shared memory of one block of the backward's reverse dS chain
+    (mirrors ``rc_smem_bytes`` and ``rc_stages`` in ``csrc/gdr_bwd.cu``):
+    three ring stages (two where three do not fit) of Q, K tiles (input
+    type) and W tiles (fp32), rows of d_k rounded up to 16 plus 16 bytes,
+    and dO-column tiles (rows of 16 + 8 floats); then g transposed and the
+    −KG tile.  It does not grow with N."""
+    d16 = -(-dk // 16) * 16
+    elem = 2 if bf16 else 4
+    stage = CHAIN_ROWS * (2 * (d16 + 16 // elem) * elem + 4 * (d16 + 4 + KLDM))
+    fixed = 4 * (CHAIN_COLS * (d16 + 4) + CHAIN_ROWS * KLDM)
+    stages = 3 if 3 * stage + fixed <= SMEM_LIMIT_BYTES else 2
+    return stages * stage + fixed
+
+
+def bwd_frames_smem_bytes(n: int, dk: int, dv: int, bf16: bool) -> int:
+    """Shared memory of one block of the backward's per-frame adjoint
+    (mirrors ``adj_smem_floats`` in ``csrc/gdr_bwd.cu``): one region that
+    holds first S̃, g (rows of d_v padded), S̃ gᵀ and a 32-row panel of K
+    (input type), dO, U, W and KG, then the panel workspace (the d_k × m
+    accumulator, the panel's K, A block, right-hand side, solution and X
+    rows, two 16 × 16 inverses and the panel's η); then β, η and 8 warp
+    partials.  Only β and η grow with N."""
+    up8 = lambda x: -(-x // 8) * 8
+    tile = lambda d, elem: -(-d // 16) * 16 + 16 // elem   # chain's tile_ld
+    m, elem = dv + dk, (2 if bf16 else 4)
+    ld_v, ld_p, ld_x, ld_k = up8(dv) + 4, up8(dk) + 4, up8(m) + 8, up8(dk) + 4
+    before = (2 * dk * ld_v + dk * ld_p + PANEL * tile(dk, elem) * elem // 4
+              + PANEL * (2 * tile(dv, 4) + tile(dk, 4) + ld_v))
+    after = (dk * ld_x + PANEL * ld_k + PANEL * (PANEL + 4) + 3 * PANEL * ld_x
+             + 2 * WY_BLOCK * (WY_BLOCK + 4) + PANEL)
+    return 4 * (max(before, after) + 2 * n + 8)
+
+
+def bwd_launch_plan(b: int, h: int, t: int, n: int, dk: int, dv: int,
+                    bf16: bool) -> dict:
+    """The backward's three launches (grid, threads and shared memory of
+    each) and the bytes of its scratch (U, W; g and dS̃ per frame; Y);
+    ``fits`` is False where a block would need more shared memory than
+    Hopper gives it, or d_k is past the chain's largest."""
+    frames = b * h * t
+    plan = {
+        "solve": {"grid": (frames,), "threads": THREADS,
+                  "smem": wy_smem_bytes(n, dk, dv),
+                  "panels": wy_uses_panels(n, dk, dv)},
+        "chain": {"grid": (b * h, -(-dv // CHAIN_COLS)), "threads": THREADS,
+                  "smem": bwd_chain_smem_bytes(dk, bf16)},
+        "frames": {"grid": (frames,), "threads": THREADS,
+                   "smem": bwd_frames_smem_bytes(n, dk, dv, bf16)},
+        "scratch_bytes": 4 * frames * (2 * n * (dv + dk) + 2 * dk * dv),
+    }
+    plan["fits"] = (dk <= CHAIN_MAX_DK and max(
+        plan[p]["smem"] for p in ("solve", "chain", "frames")) <= SMEM_LIMIT_BYTES)
+    return plan
 
 
 @functools.cache
@@ -167,7 +218,7 @@ def _lib() -> ctypes.CDLL:
     """``csrc/gdr_fwd.cu``'s library: the forward and the chain alone."""
     lib = ctypes.CDLL(str(_build.build("gdr_fwd")))
     p, i, size = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
-    lib.gdr_fwd.argtypes = [p] * 12 + [i] * 7 + [p]
+    lib.gdr_fwd.argtypes = [p] * 14 + [i] * 8 + [p]
     lib.gdr_fwd.restype = i
     lib.gdr_chain.argtypes = [p] * 9 + [i] * 7 + [p]
     lib.gdr_chain.restype = i
@@ -187,15 +238,19 @@ def _lib() -> ctypes.CDLL:
 
 @functools.cache
 def _bwd_lib() -> ctypes.CDLL:
+    """``csrc/gdr_bwd.cu``'s library: the backward."""
     lib = ctypes.CDLL(str(_build.build("gdr_bwd")))
     p, i, size = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
-    lib.gdr_bwd.argtypes = [p] * 17 + [i] * 7 + [p]
+    lib.gdr_bwd.argtypes = [p] * 21 + [i] * 7 + [p]
     lib.gdr_bwd.restype = i
     lib.gdr_bwd_error_string.argtypes = [i]
     lib.gdr_bwd_error_string.restype = ctypes.c_char_p
-    for fn in (lib.gdr_bwd_smem_bytes, lib.gdr_bwd_scratch_floats):
-        fn.argtypes = [i, i, i]
+    lib.gdr_bwd_solve_smem_bytes.argtypes = [i, i, i]
+    lib.gdr_bwd_frames_smem_bytes.argtypes = [i, i, i, i]
+    for fn in (lib.gdr_bwd_solve_smem_bytes, lib.gdr_bwd_frames_smem_bytes):
         fn.restype = size
+    lib.gdr_bwd_chain_smem_bytes.argtypes = [i, i]
+    lib.gdr_bwd_chain_smem_bytes.restype = size
     return lib
 
 
@@ -246,7 +301,8 @@ def _check_inputs(fn: str, q: Tensor, k: Tensor, v: Tensor, beta: Tensor,
 
 def _launch_fwd(q: Tensor, k: Tensor, v: Tensor, beta: Tensor, alpha: Tensor,
                 s0: Tensor, eta: Optional[Tensor], save_states: bool,
-                save_uw: bool) -> Tuple[Optional[Tensor], ...]:
+                save_uw: bool, save_bf16: bool = False
+                ) -> Tuple[Optional[Tensor], ...]:
     eta = beta if eta is None else eta
     b, h, t, n, dk, dv = _check_inputs("gdr_fwd_cuda", q, k, v, beta, eta, alpha)
     dev = q.device
@@ -257,22 +313,32 @@ def _launch_fwd(q: Tensor, k: Tensor, v: Tensor, beta: Tensor, alpha: Tensor,
     f32 = dict(dtype=torch.float32, device=dev)
     o = torch.empty((b, h, t, n, dv), **f32)
     s_t = torch.empty((b, h, dk, dv), **f32)
-    states = torch.empty((b, h, t, dk, dv), **f32) if save_states else None
+    # Residuals in bf16 (GDKVM_GDR_SAVE_DTYPE=bf16): S_{t-1} and extra bf16
+    # copies of U, W; the chain still reads the fp32 U, W.
+    save_bf16 = save_bf16 and save_states and save_uw
+    bf = dict(dtype=torch.bfloat16, device=dev)
+    states = (torch.empty((b, h, t, dk, dv), **(bf if save_bf16 else f32))
+              if save_states else None)
     # The solve's U, W: the residuals, or scratch that dies with this call.
     u = torch.empty((b, h, t, n, dv), **f32)
     w = torch.empty((b, h, t, n, dk), **f32)
+    u16 = torch.empty((b, h, t, n, dv), **bf) if save_bf16 else None
+    w16 = torch.empty((b, h, t, n, dk), **bf) if save_bf16 else None
+    ptr = lambda x: None if x is None else x.data_ptr()
     with _launching(dev) as stream:
         err = lib.gdr_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                           beta.data_ptr(), eta.data_ptr(), alpha.data_ptr(),
                           s0.data_ptr(), o.data_ptr(), s_t.data_ptr(),
-                          None if states is None else states.data_ptr(),
-                          u.data_ptr(), w.data_ptr(), b, h, t, n, dk, dv,
-                          int(q.dtype == torch.bfloat16), stream)
+                          ptr(states), u.data_ptr(), w.data_ptr(), ptr(u16),
+                          ptr(w16), b, h, t, n, dk, dv,
+                          int(q.dtype == torch.bfloat16), int(save_bf16), stream)
     if err != 0:
         raise RuntimeError(f"gdr_fwd launch failed: CUDA error {err} "
                            f"({lib.gdr_error_string(err).decode()})")
     LAUNCHES.n += 1
     RESIDUAL_LAUNCHES.n += save_states or save_uw
+    if save_bf16:
+        u, w = u16, w16
     return o, s_t, states, *((u, w) if save_uw else (None, None))
 
 
@@ -300,13 +366,15 @@ def gdr_fwd_cuda(q: Tensor, k: Tensor, v: Tensor, beta: Tensor, alpha: Tensor,
 def gdr_fwd_cuda_residuals(q: Tensor, k: Tensor, v: Tensor, beta: Tensor,
                            alpha: Tensor, s0: Tensor,
                            eta: Optional[Tensor] = None, *,
-                           save_uw: bool = True
+                           save_uw: bool = True, save_bf16: bool = False
                            ) -> Tuple[Optional[Tensor], ...]:
     """The forward kernel with its residual outputs → (o, s_T, states, u,
     w): states (B, H, T, d_k, d_v) = S_{t-1} per frame before its decay;
-    u, w the frame's WY solve, or None without ``save_uw``.  All fp32.
-    Its plain version is ``core.gdr.gdr_chunked_residuals``."""
-    return _launch_fwd(q, k, v, beta, alpha, s0, eta, True, save_uw)
+    u, w the frame's WY solve, or None without ``save_uw``.  All fp32; with
+    ``save_bf16`` and ``save_uw`` (``GDKVM_GDR_SAVE_DTYPE=bf16``) states, u
+    and w are bf16.  Its plain version is
+    ``core.gdr.gdr_chunked_residuals``."""
+    return _launch_fwd(q, k, v, beta, alpha, s0, eta, True, save_uw, save_bf16)
 
 
 def gdr_chain_cuda(q: Tensor, k: Tensor, u: Tensor, w: Tensor, alpha: Tensor,
@@ -355,22 +423,41 @@ def gdr_chain_cuda(q: Tensor, k: Tensor, u: Tensor, w: Tensor, alpha: Tensor,
     return o, s_t, states
 
 
+def _check_bwd_plan(b: int, h: int, t: int, n: int, dk: int, dv: int,
+                    bf16: bool) -> dict:
+    plan = bwd_launch_plan(b, h, t, n, dk, dv, bf16)
+    if not plan["fits"]:
+        raise ValueError(
+            f"GDR backward at N={n}, d_k={dk}, d_v={dv}: its phases need "
+            + ", ".join(f"{p} {plan[p]['smem']} B" for p in ("solve", "chain", "frames"))
+            + f" of shared memory (a block may use {SMEM_LIMIT_BYTES} B), and "
+            f"the chain takes d_k <= {CHAIN_MAX_DK}")
+    return plan
+
+
 def gdr_bwd_cuda(q: Tensor, k: Tensor, v: Tensor, beta: Tensor, eta: Tensor,
                  alpha: Tensor, states: Tensor, do: Tensor, ds_t: Tensor
                  ) -> Tuple[Tensor, ...]:
-    """Launch the CUDA GDR backward kernel → (dq, dk, dv, dbeta, deta,
-    dalpha (B, H, T), ds0), all fp32.  Its plain version is
-    ``core.gdr.gdr_bwd_ref``, with the same arguments."""
+    """Launch the CUDA GDR backward → (dq, dk, dv, dbeta, deta, dalpha (B,
+    H, T), ds0), all fp32: one C call, three kernels (the WY solve of every
+    frame, the reverse dS chain, the per-frame adjoint), with scratch that
+    the wrapper allocates.  Its plain version is ``core.gdr.gdr_bwd_ref``,
+    with the same arguments."""
+    return _bwd_launch(q, k, v, beta, eta, alpha, states, do, ds_t)[0]
+
+
+def _bwd_launch(q: Tensor, k: Tensor, v: Tensor, beta: Tensor, eta: Tensor,
+                alpha: Tensor, states: Tensor, do: Tensor, ds_t: Tensor
+                ) -> Tuple[Tuple[Tensor, ...], Tuple[Tensor, ...]]:
+    """:func:`gdr_bwd_cuda` → (its gradients, (u, w, g, ds_dec)): the
+    scratch its phases wrote, the solve's U, W and the reverse chain's dS_t,
+    dS̃_t per frame (B, H, T, d_k, d_v), for checks of each phase."""
     b, h, t, n, dk, dv = _check_inputs("gdr_bwd_cuda", q, k, v, beta, eta, alpha)
     dev = q.device
     _check("states", states, (b, h, t, dk, dv), (torch.float32,), dev)
     _check("do", do, (b, h, t, n, dv), (torch.float32,), dev)
     _check("ds_t", ds_t, (b, h, dk, dv), (torch.float32,), dev)
-    need = bwd_smem_bytes(n, dk, dv)
-    if need > SMEM_LIMIT_BYTES:
-        raise ValueError(
-            f"GDR backward kernel at N={n}, d_k={dk}, d_v={dv} needs {need} B "
-            f"of shared memory, over the {SMEM_LIMIT_BYTES} B a block may use")
+    _check_bwd_plan(b, h, t, n, dk, dv, q.dtype == torch.bfloat16)
 
     lib = _bwd_lib()
     f32 = dict(dtype=torch.float32, device=dev)
@@ -381,21 +468,22 @@ def gdr_bwd_cuda(q: Tensor, k: Tensor, v: Tensor, beta: Tensor, eta: Tensor,
     deta = torch.empty((b, h, t, n), **f32)
     dalpha = torch.empty((b, h, t), **f32)
     ds0 = torch.empty((b, h, dk, dv), **f32)
-    scratch = torch.empty((b * h * bwd_scratch_floats(n, dk, dv),), **f32)
+    # Scratch: the recomputed U, W; dS_t and dS̃_t per frame; Y.
+    u = torch.empty((b, h, t, n, dv), **f32)
+    w = torch.empty((b, h, t, n, dk), **f32)
+    g = torch.empty((b, h, t, dk, dv), **f32)
+    dsd = torch.empty((b, h, t, dk, dv), **f32)
+    y = torch.empty((b, h, t, n, dv + dk), **f32)
     with _launching(dev) as stream:
-        err = lib.gdr_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                          beta.data_ptr(), eta.data_ptr(), alpha.data_ptr(),
-                          states.data_ptr(), do.data_ptr(), ds_t.data_ptr(),
-                          dq.data_ptr(), dk_.data_ptr(), dv_.data_ptr(),
-                          dbeta.data_ptr(), deta.data_ptr(), dalpha.data_ptr(),
-                          ds0.data_ptr(), scratch.data_ptr(),
-                          b, h, t, n, dk, dv, int(q.dtype == torch.bfloat16),
-                          stream)
+        err = lib.gdr_bwd(*(x.data_ptr() for x in (
+            q, k, v, beta, eta, alpha, states, do, ds_t, dq, dk_, dv_, dbeta,
+            deta, dalpha, ds0, u, w, g, dsd, y)),
+            b, h, t, n, dk, dv, int(q.dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"gdr_bwd launch failed: CUDA error {err} "
                            f"({lib.gdr_bwd_error_string(err).decode()})")
     BWD_LAUNCHES.n += 1
-    return dq, dk_, dv_, dbeta, deta, dalpha, ds0
+    return (dq, dk_, dv_, dbeta, deta, dalpha, ds0), (u, w, g, dsd)
 
 
 def _bwd_mode() -> str:
@@ -406,6 +494,17 @@ def _bwd_mode() -> str:
         raise ValueError(f"GDKVM_GDR_BWD must be stored|recompute|fused, "
                          f"got {mode!r}")
     return mode
+
+
+def _save_dtype() -> str:
+    """``GDKVM_GDR_SAVE_DTYPE``: f32 (default) | bf16, the type of the
+    stored backward's residuals (S_{t-1}, U, W), read when a forward runs
+    (the JAX package's ``_save_dtype``, read when it traces).  It applies
+    to the monolith forward under ``GDKVM_GDR_BWD=stored`` only."""
+    val = os.environ.get("GDKVM_GDR_SAVE_DTYPE", "f32")
+    if val not in ("f32", "bf16"):
+        raise ValueError(f"GDKVM_GDR_SAVE_DTYPE must be f32|bf16, got {val!r}")
+    return val
 
 
 def _fwd_mode() -> str:
@@ -459,8 +558,10 @@ class GDRFunction(torch.autograd.Function):
                 o, s_t, states = gdr_chain_cuda(q, k, u, w, alpha, s0,
                                                 save_states=True)
             else:
+                stored = mode == "stored"
                 o, s_t, states, u, w = gdr_fwd_cuda_residuals(
-                    *ins, save_uw=mode == "stored")
+                    *ins, save_uw=stored,
+                    save_bf16=stored and _save_dtype() == "bf16")
             res = (states, u, w) if mode == "stored" else (states,)
             ctx.save_for_backward(q, k, v, beta, alpha, eta_, *res)
         return o, s_t

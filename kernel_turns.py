@@ -17,9 +17,9 @@ device alone):
 - the chain kernel (``gdr_chain_cuda``) at the serving shape without
   S_{t-1} and at the training shape with it;
 - beside them the plain versions (``gdr_chunked``, ``gdr_chunked_residuals``,
-  ``gdr_chain``, ``gdr_bwd_ref``) and the batched solve ``_wy``: plain
-  PyTorch in either tree, so they show how far the clock moves between
-  turns.
+  ``gdr_chain``, ``gdr_bwd_ref``), the stored backward ``gdr_bwd_stored``
+  and the batched solve ``_wy``: plain PyTorch in either tree, so they
+  show how far the clock moves between turns.
 
 Each process prints one line of medians (ms); the last line is one JSON
 object with, for each entry, the median over both turns of each tree and
@@ -91,6 +91,8 @@ def _child(tree: Path) -> dict:
     args = (q, k, v, beta, beta, alpha, states, do, ds_t)
     out["bwd train"] = med(lambda: gdr_cuda.gdr_bwd_cuda(*args), iters=10)
     out["plain bwd train"] = med(lambda: gdr.gdr_bwd_ref(*args), iters=10)
+    out["stored bwd train"] = med(lambda: gdr.gdr_bwd_stored(
+        q, k, v, beta, beta, alpha, states, u, w, do, ds_t), iters=10)
     return out
 
 

@@ -186,7 +186,7 @@ def test_kernel_shared_memory_limit():
     forward's solve keeps K, [U | W] and A in shared memory up to N=157 at
     d=64 (16-row block substitution), solves by 32-row panels above that,
     and fits beyond N=301; the chain's tiles do not grow with N; the
-    backward fits to N=301."""
+    backward's phases fit to N=301."""
     limit = gdr_cuda.SMEM_LIMIT_BYTES
     for n in (49, 64, 137, 157):
         assert not gdr_cuda.wy_uses_panels(n, 64, 64)
@@ -200,9 +200,13 @@ def test_kernel_shared_memory_limit():
     assert gdr_cuda.chain_smem_bytes(64, True) == 130_304
     assert gdr_cuda.chain_smem_bytes(64, False) == 179_456
     assert gdr_cuda.chain_smem_bytes(gdr_cuda.CHAIN_MAX_DK, False) <= limit
-    assert gdr_cuda.bwd_smem_bytes(256, 64, 64) == 205_216 <= limit
-    assert gdr_cuda.bwd_smem_bytes(301, 64, 64) <= limit
-    assert gdr_cuda.bwd_scratch_floats(256, 64, 64) * 4 == 458_752
+    # The backward's reverse chain like the forward's; its per-frame
+    # adjoint small enough for two blocks an SM (2 × 105 KB of 228 KB).
+    assert gdr_cuda.bwd_chain_smem_bytes(64, True) == 136_448
+    for bf16 in (False, True):
+        assert gdr_cuda.bwd_frames_smem_bytes(256, 64, 64, bf16) == 105_120
+        assert gdr_cuda.bwd_frames_smem_bytes(301, 64, 64, bf16) <= limit
+    assert 2 * (gdr_cuda.bwd_frames_smem_bytes(256, 64, 64, True) + 1024) <= 228 * 1024
 
 
 def _replaced_fwd_fits(n, dk, dv):
@@ -251,6 +255,52 @@ def test_serving_shape_fills_the_card():
     assert train["solve"]["panels"] and train["solve"]["grid"] == (320,)
 
 
+def _replaced_bwd_fits(n, dk, dv):
+    """Whether the one-block-per-(b, h) backward kernel that this design
+    replaced took (N, d_k, d_v): S̃, dS, dS̃ and K in shared memory beside
+    the panel workspace (its ``smem_floats``)."""
+    m = dv + dk
+    floats = (3 * dk * (dv + 1) + n * (dk + 1) + 2 * n + 8 + gdr_cuda._panel_floats(dk, m)
+              + gdr_cuda.PANEL * (m + 1) + gdr_cuda.PANEL * dk)
+    return 4 * floats <= gdr_cuda.SMEM_LIMIT_BYTES
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+def test_bwd_launch_plan_takes_every_shape_the_old_kernel_took(d, bf16):
+    """For every N from 1 to 301 that the replaced backward kernel took at
+    d_k = d_v = d (and at d_k = 32, d_v = 64), the three launches fit a
+    Hopper block: the solve and the per-frame adjoint one block a frame,
+    the reverse chain (B·H, d_v/16) blocks; the adjoint's shared memory
+    does not grow past two blocks an SM; the scratch holds U, W, Y and two
+    d_k × d_v matrices a frame in fp32."""
+    b, h, t = 2, 3, 5
+    for dk, dv in {(d, d), (32, 64)}:
+        taken = [n for n in range(1, 302) if _replaced_bwd_fits(n, dk, dv)]
+        assert len(taken) == {(32, 32): 301, (64, 64): 301, (128, 128): 0,
+                              (32, 64): 301}[dk, dv]
+        for n in taken:
+            plan = gdr_cuda.bwd_launch_plan(b, h, t, n, dk, dv, bf16)
+            assert plan["fits"], (n, dk, dv)
+            assert plan["solve"]["grid"] == plan["frames"]["grid"] == (b * h * t,)
+            assert plan["chain"]["grid"] == (b * h, -(-dv // 16))
+            assert {plan[p]["threads"] for p in ("solve", "chain", "frames")} == {256}
+            assert plan["solve"] == gdr_cuda.fwd_launch_plan(b, h, t, n, dk, dv, bf16)["solve"]
+            assert plan["frames"]["smem"] <= 113 * 1024
+            assert plan["scratch_bytes"] == 4 * b * h * t * (2 * n * (dk + dv) + 2 * dk * dv)
+    assert not gdr_cuda.bwd_launch_plan(b, h, t, 8, 136, 64, bf16)["fits"]
+
+
+def test_bwd_plan_at_the_training_shape():
+    """At the training shape (B=8 H=4 T=10 N=256 d=64) the per-frame
+    phases run 320 blocks and the chain 128, against the replaced kernel's
+    32; the scratch is 94.4 MB."""
+    plan = gdr_cuda.bwd_launch_plan(8, 4, 10, 256, 64, 64, True)
+    assert plan["solve"]["grid"] == plan["frames"]["grid"] == (320,)
+    assert plan["chain"]["grid"] == (32, 4) and plan["solve"]["panels"]
+    assert plan["scratch_bytes"] == 94_371_840
+
+
 class _FakeLib:
     """Stands in for a kernel library: records each entry point's
     arguments and returns ``err``."""
@@ -270,15 +320,18 @@ class _FakeLib:
 
 @pytest.fixture
 def fake_launch(monkeypatch):
-    """The wrappers on CPU tensors with the forward's library (which holds
-    the chain too) faked: no device check, stream 7."""
+    """The wrappers on CPU tensors with both libraries (the forward's,
+    which holds the chain too, and the backward's) faked: no device check,
+    stream 7."""
     import contextlib
     lib = _FakeLib()
     monkeypatch.setattr(gdr_cuda, "_require_cuda", lambda fn, x: None)
     monkeypatch.setattr(gdr_cuda, "_launching",
                         lambda dev: contextlib.nullcontext(7))
     monkeypatch.setattr(gdr_cuda, "_lib", lambda: lib)
-    for c in (gdr_cuda.LAUNCHES, gdr_cuda.CHAIN_LAUNCHES, gdr_cuda.RESIDUAL_LAUNCHES):
+    monkeypatch.setattr(gdr_cuda, "_bwd_lib", lambda: lib)
+    for c in (gdr_cuda.LAUNCHES, gdr_cuda.CHAIN_LAUNCHES, gdr_cuda.RESIDUAL_LAUNCHES,
+              gdr_cuda.BWD_LAUNCHES):
         c.reset()
     return lib
 
@@ -299,16 +352,17 @@ def test_fwd_wrapper_passes_arguments_in_order(fake_launch, save):
                                               save_uw=save == "states_uw")
         assert (out[3] is None) == (save == "states")
     [(name, args)] = fake_launch.calls
-    assert name == "gdr_fwd" and len(args) == 20
-    ptrs, ints, stream = args[:12], args[12:19], args[19]
+    assert name == "gdr_fwd" and len(args) == 23
+    ptrs, ints, stream = args[:14], args[14:22], args[22]
     want = [x.data_ptr() for x in (q, k, v, beta, beta, alpha, s0, out[0], out[1])]
     assert list(ptrs[:9]) == want            # eta=None passes beta as eta
     assert (ptrs[9] is None) == (save == "none")
     assert ptrs[10] and ptrs[11] and len(set(ptrs[7:12]) - {None}) == 4 + (save != "none")
+    assert ptrs[12] is None and ptrs[13] is None     # no bf16 copies
     if save == "states_uw":
         assert (ptrs[9], ptrs[10], ptrs[11]) == tuple(x.data_ptr() for x in out[2:])
         assert out[3].shape == (2, 2, 3, 5, 4) and out[4].shape == (2, 2, 3, 5, 8)
-    assert list(ints) == [2, 2, 3, 5, 8, 4, 1] and stream == 7
+    assert list(ints) == [2, 2, 3, 5, 8, 4, 1, 0] and stream == 7
     assert (gdr_cuda.LAUNCHES.n, gdr_cuda.RESIDUAL_LAUNCHES.n) == (1, int(save != "none"))
     assert gdr_cuda.CHAIN_LAUNCHES.n == 0
 
@@ -342,7 +396,7 @@ def test_fwd_wrapper_passes_decoupled_eta_and_returns_the_solve(fake_launch):
     assert list(args[:6]) == [x.data_ptr() for x in (q, k, v, beta, eta, alpha)]
     u, w = out[3], out[4]
     assert (args[10], args[11]) == (u.data_ptr(), w.data_ptr())
-    assert list(args[12:]) == [2, 3, 4, 6, 8, 12, 0, 7]
+    assert list(args[12:]) == [None, None, 2, 3, 4, 6, 8, 12, 0, 0, 7]
     assert u.shape == (2, 3, 4, 6, 12) and w.shape == (2, 3, 4, 6, 8)
     assert u.dtype == w.dtype == torch.float32
     assert (gdr_cuda.LAUNCHES.n, gdr_cuda.RESIDUAL_LAUNCHES.n) == (1, 1)
@@ -360,3 +414,81 @@ def test_fwd_wrapper_refuses_what_the_kernels_do_not_take(fake_launch):
     with pytest.raises(ValueError, match="shared memory"):
         gdr_cuda.gdr_fwd_cuda_residuals(q, k, v, beta, alpha, s0)
     assert fake_launch.calls == [] and gdr_cuda.LAUNCHES.n == 0
+
+
+def _bwd_args(seed, B=2, H=3, T=4, N=6, dk=8, dv=12, bf16=False):
+    q, k, v, beta, alpha, s0 = _t(_inputs(seed, B=B, H=H, T=T, N=N, dk=dk, dv=dv))
+    if bf16:
+        q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    eta = beta * 0.5
+    states = torch.randn((B, H, T, dk, dv))
+    do = torch.randn((B, H, T, N, dv))
+    return q, k, v, beta, eta, alpha, states, do, s0
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+def test_bwd_wrapper_passes_arguments_in_order(fake_launch, bf16):
+    """One backward is one C call (three kernels inside) and one count: the
+    nine inputs and seven outputs in the order of the C prototype, then the
+    scratch the wrapper allocates (U, W, g, dS̃, Y: fp32, distinct, shaped
+    as the plan says), the shapes, the bf16 flag and the stream."""
+    q, k, v, beta, eta, alpha, states, do, ds_t = _bwd_args(14, bf16=bf16)
+    out = gdr_cuda.gdr_bwd_cuda(q, k, v, beta, eta, alpha, states, do, ds_t)
+    [(name, args)] = fake_launch.calls
+    assert name == "gdr_bwd" and len(args) == 29
+    ptrs, ints, stream = args[:21], args[21:28], args[28]
+    assert list(ptrs[:9]) == [x.data_ptr() for x in (q, k, v, beta, eta, alpha,
+                                                     states, do, ds_t)]
+    assert list(ptrs[9:16]) == [x.data_ptr() for x in out]
+    assert len(set(ptrs)) == 21 and all(ptrs[16:])
+    assert list(ints) == [2, 3, 4, 6, 8, 12, int(bf16)] and stream == 7
+    shapes = [tuple(x.shape) for x in out]
+    assert shapes == [(2, 3, 4, 6, 8), (2, 3, 4, 6, 8), (2, 3, 4, 6, 12), (2, 3, 4, 6),
+                      (2, 3, 4, 6), (2, 3, 4), (2, 3, 8, 12)]
+    assert all(x.dtype == torch.float32 for x in out)
+    assert gdr_cuda.BWD_LAUNCHES.n == 1
+
+
+def test_bwd_launch_returns_its_scratch(fake_launch):
+    """``_bwd_launch`` is the same one C call and one count as
+    ``gdr_bwd_cuda``, and returns the scratch it passed to it: U, W, g and
+    dS̃ (the C call's 17th to 20th pointers), fp32, shaped per frame."""
+    q, k, v, beta, eta, alpha, states, do, ds_t = _bwd_args(15)
+    grads, (u, w, g, dsd) = gdr_cuda._bwd_launch(q, k, v, beta, eta, alpha,
+                                                 states, do, ds_t)
+    [(name, args)] = fake_launch.calls
+    assert name == "gdr_bwd"
+    assert list(args[9:16]) == [x.data_ptr() for x in grads]
+    assert list(args[16:20]) == [x.data_ptr() for x in (u, w, g, dsd)]
+    assert u.shape == (2, 3, 4, 6, 12) and w.shape == (2, 3, 4, 6, 8)
+    assert g.shape == dsd.shape == (2, 3, 4, 8, 12)
+    assert all(x.dtype == torch.float32 for x in (u, w, g, dsd))
+    assert gdr_cuda.BWD_LAUNCHES.n == 1
+
+
+def test_bwd_wrappers_raise_on_a_failed_launch_or_a_shape_past_the_plan(fake_launch):
+    """A nonzero return raises with CUDA's message and counts nothing; a
+    d_k past the chain's 128 raises before anything launches."""
+    args = _bwd_args(16)
+    fake_launch.err = 98
+    with pytest.raises(RuntimeError, match="gdr_bwd launch failed: CUDA error 98"):
+        gdr_cuda.gdr_bwd_cuda(*args)
+    fake_launch.err, fake_launch.calls = 0, []
+    with pytest.raises(ValueError, match="d_k <= 128"):
+        gdr_cuda.gdr_bwd_cuda(*_bwd_args(16, N=3, dk=136, dv=8))
+    assert fake_launch.calls == [] and gdr_cuda.BWD_LAUNCHES.n == 0
+
+
+def test_fwd_wrapper_bf16_residuals(fake_launch):
+    """With ``save_bf16`` the forward passes bf16 S_{t-1} and bf16 copies of
+    U, W (the 13th and 14th pointers) beside the fp32 U, W that the chain
+    reads, sets the flag, and returns the bf16 ones."""
+    q, k, v, beta, alpha, s0 = _t(_inputs(17, B=2, H=3, T=4, N=6, dk=8, dv=12))
+    o, s_t, states, u, w = gdr_cuda.gdr_fwd_cuda_residuals(q, k, v, beta, alpha, s0,
+                                                           save_bf16=True)
+    [(_, args)] = fake_launch.calls
+    assert states.dtype == u.dtype == w.dtype == torch.bfloat16
+    assert o.dtype == s_t.dtype == torch.float32
+    assert (args[9], args[12], args[13]) == (states.data_ptr(), u.data_ptr(), w.data_ptr())
+    assert args[10] and args[11] and len(set(args[7:14])) == 7
+    assert list(args[14:]) == [2, 3, 4, 6, 8, 12, 0, 1, 7]

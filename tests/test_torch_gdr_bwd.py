@@ -124,6 +124,128 @@ def test_plain_backward_matches_pallas_vjp(mode, bwd, monkeypatch):
         _close(got, ref, name=name)
 
 
+def _composed(q, k, v, beta, eta, alpha, states, do, ds_t):
+    """The backward kernel's three phases in their plain versions: every
+    frame's WY solve, the reverse dS chain, the per-frame adjoint."""
+    u, w = gdr.wy_transform(k, v, beta, eta)
+    g, ds_dec, ds0 = gdr.gdr_bwd_chain(k, w, q.transpose(-1, -2) @ do, alpha, ds_t)
+    return (*gdr.gdr_bwd_frames(k, v, beta, eta, alpha, states, u, w, do, g,
+                                ds_dec), ds0)
+
+
+# N=7 and N=33 (not a multiple of the 32-row panel), T=1, d_k ≠ d_v.
+PHASE_SHAPES = [(4, 7, 16, 16), (3, 33, 16, 16), (1, 33, 16, 16), (2, 33, 16, 32)]
+
+
+@pytest.mark.parametrize("T,N,dk,dv", PHASE_SHAPES)
+def test_phases_compose_to_the_fused_backward(T, N, dk, dv):
+    """wy_transform → gdr_bwd_chain → gdr_bwd_frames equals gdr_bwd_ref
+    (decoupled gates, random cotangents): the redesigned kernel's phases
+    compute the function of the kernel they replace."""
+    q, k, v, beta, alpha, s0 = _t(_inputs(20, T=T, N=N, dk=dk, dv=dv))
+    eta = torch.sigmoid(torch.linspace(-2, 2, beta.numel())).reshape(beta.shape)
+    states = gdr.gdr_chunked_residuals(q, k, v, beta, alpha, s0, eta)[2]
+    gen = torch.Generator().manual_seed(20)
+    do = torch.randn(q.shape[:4] + (dv,), generator=gen)
+    ds_t = torch.randn(s0.shape, generator=gen)
+    args = (q, k, v, beta, eta, alpha, states, do, ds_t)
+    for name, got, want in zip(NAMES[:3] + ("dbeta", "deta", "dalpha", "ds0"),
+                               _composed(*args), gdr.gdr_bwd_ref(*args)):
+        assert got.shape == want.shape and got.dtype == torch.float32, name
+        _close(got, want, name=name)
+
+
+@pytest.mark.parametrize("T,N,dk,dv", PHASE_SHAPES)
+def test_phases_compose_to_the_pallas_fused_vjp(T, N, dk, dv, monkeypatch):
+    """The same composition (coupled gates: dβ = write + erase) equals
+    jax.grad through gdr_pallas_bh under GDKVM_GDR_BWD=fused, whose
+    backward is the Pallas ``_gdr_bwd_kernel`` (interpret mode)."""
+    monkeypatch.setenv("GDKVM_GDR_BWD", "fused")
+    args = _inputs(21, T=T, N=N, dk=dk, dv=dv)
+    w_o, w_s = _weights(T, N, dk, dv)
+    want = _jax_grads(gdr_pallas.gdr_pallas_bh, args, w_o, w_s)
+    q, k, v, beta, alpha, s0 = _t(args)
+    states = gdr.gdr_chunked_residuals(q, k, v, beta, alpha, s0)[2]
+    do = torch.from_numpy(np.broadcast_to(w_o, q.shape[:4] + (dv,)).copy())
+    ds_t = torch.from_numpy(np.broadcast_to(w_s, s0.shape).copy())
+    dq, dk_, dv_, dbeta, deta, dalpha, ds0 = _composed(
+        q, k, v, beta, beta, alpha, states, do, ds_t)
+    for name, got, ref in zip(NAMES, (dq, dk_, dv_, dbeta + deta, dalpha, ds0), want):
+        _close(got, ref, name=name)
+
+
+# The stored backward from bf16 residuals against JAX's, as max|Δ| over
+# max|JAX|, for the gradients that tell bf16 residuals from fp32 ones: from
+# bf16 residuals they come within 2.7e-4, from fp32 ones no nearer than
+# 5.6e-4 (the control in the test holds the second).
+SAVE_BF16_REL = 4e-4
+
+
+@pytest.mark.parametrize("T,N", [(4, 7), (3, 17)])
+def test_stored_bf16_residuals_match_jax(T, N, monkeypatch):
+    """Under GDKVM_GDR_SAVE_DTYPE=bf16 the stored mode keeps S_{t-1}, U, W
+    in bf16 (the plain forward rounds them as the kernel does) and its
+    gradients through the Function equal jax.grad through gdr_pallas_bh
+    under the same variable, whose Pallas forward stores them in bf16.
+
+    dq, dα and ds0 do not pass through Y = (I + A)⁻ᵀ dX: they are held at
+    the file's tolerance element by element, and with dk at SAVE_BF16_REL
+    of each gradient's scale; the same gradients from fp32 residuals must
+    miss that bar, so the bar sees the rounding.  dv and dβ pass through
+    Y, for which the JAX package also uses the forward's diagonal-block
+    inverses, stored in bf16 too (the port's solve is exact and keeps
+    none): that moves them as far as the rounding does, so they are held
+    at the file's rtol of their scale, as the large-N test does."""
+    monkeypatch.setenv("GDKVM_GDR_SAVE_DTYPE", "bf16")
+    monkeypatch.setenv("GDKVM_GDR_BWD", "stored")
+    args = _inputs(22, T=T, N=N)
+    w_o, w_s = _weights(T, N, 16, 16)
+    want = [np.asarray(x) for x in _jax_grads(gdr_pallas.gdr_pallas_bh, args, w_o, w_s)]
+    got, saved = {}, []
+    for save in ("bf16", "f32"):
+        ins = [x.requires_grad_(True) for x in _t(args)]
+        with _plain_launchers("stored") as pl:
+            pl.mp.setenv("GDKVM_GDR_SAVE_DTYPE", save)
+            with torch.autograd.graph.saved_tensors_hooks(
+                    lambda x: saved.append(x.dtype) or x, lambda x: x):
+                o, s = gdr_cuda.GDRFunction.apply(*ins, None)
+            got[save] = torch.autograd.grad((o * torch.from_numpy(w_o)).sum()
+                                            + (s * torch.from_numpy(w_s)).sum(), ins)
+        if save == "bf16":
+            assert saved[-3:] == [torch.bfloat16] * 3     # states, u, w
+    rel = lambda g, ref: np.abs(g.numpy() - ref).max() / np.abs(ref).max()
+    for name, g, g32, ref in zip(NAMES, got["bf16"], got["f32"], want):
+        if name in ("dv", "dbeta"):
+            assert rel(g, ref) <= G_RTOL, (name, rel(g, ref))
+            continue
+        if name != "dk":
+            _close(g, ref, name=name)
+        assert rel(g, ref) <= SAVE_BF16_REL, (name, rel(g, ref))
+        assert rel(g32, ref) > SAVE_BF16_REL, (name, rel(g32, ref))
+
+
+def test_save_dtype_validation(monkeypatch):
+    """GDKVM_GDR_SAVE_DTYPE takes f32 | bf16, defaults to f32, raises on
+    anything else with the JAX package's message; only the stored mode's
+    monolith forward reads it."""
+    monkeypatch.delenv("GDKVM_GDR_SAVE_DTYPE", raising=False)
+    assert gdr_cuda._save_dtype() == "f32"
+    monkeypatch.setenv("GDKVM_GDR_SAVE_DTYPE", "bf16")
+    assert gdr_cuda._save_dtype() == "bf16"
+    monkeypatch.setenv("GDKVM_GDR_SAVE_DTYPE", "fp16")
+    with pytest.raises(ValueError, match="GDKVM_GDR_SAVE_DTYPE must be f32|bf16"):
+        gdr_cuda._save_dtype()
+    args = [x.requires_grad_(True) for x in _t(_inputs(23, B=1, T=1))]
+    with _plain_launchers("stored") as pl:
+        pl.mp.setenv("GDKVM_GDR_SAVE_DTYPE", "fp16")
+        with pytest.raises(ValueError, match="SAVE_DTYPE"):
+            gdr_cuda.GDRFunction.apply(*args, None)
+    for mode, fwd in (("fused", "monolith"), ("stored", "chain")):
+        with _plain_launchers(mode, fwd) as pl:
+            pl.mp.setenv("GDKVM_GDR_SAVE_DTYPE", "fp16")
+            gdr_cuda.GDRFunction.apply(*args, None)
+
+
 def test_state_carry_gradient_matches_jax():
     """Two chained calls through the Function (state carried, fused mode on
     the plain launchers): ds0 of the second call feeds ds_T of the first.
@@ -164,9 +286,10 @@ class _plain_launchers:
             self.calls["fwd"] += 1
             return gdr.gdr_chunked(*a)
 
-        def fwd_residuals(*a, save_uw):
+        def fwd_residuals(*a, save_uw, save_bf16=False):
             self.calls["fwd_residuals"] += 1
-            o, s_t, states, u, w = gdr.gdr_chunked_residuals(*a)
+            o, s_t, states, u, w = gdr.gdr_chunked_residuals(
+                *a, save_bf16=save_bf16 and save_uw)
             return (o, s_t, states, u, w) if save_uw else (o, s_t, states, None, None)
 
         def chain(*a, save_states):
