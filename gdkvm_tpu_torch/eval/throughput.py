@@ -1,15 +1,16 @@
-"""Streaming throughput on a CUDA device (port of ``measure_streaming_fps``
-in gdkvm_tpu/eval/throughput.py).
+"""Throughput and latency on a CUDA device (port of
+gdkvm_tpu/eval/throughput.py): streaming frames/s, per-call serving
+latency, and seconds a training step.
 
-Each chunk's step returns a 4-byte checksum of its masks.  The timer ends on
-``.item()`` of the last chunk's checksum: the carried state chains every
-chunk to the one before, so that one fetch waits for the whole run.
+Each chunk's step returns a 4-byte checksum of its masks.  A timer ends on
+``.item()`` of a checksum (or of the loss): work on one CUDA stream runs in
+order, so that one fetch waits for everything queued before it.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -70,3 +71,65 @@ def measure_streaming_fps(model: GDKVM, device: torch.device, *,
         "elapsed_sec": dt,
         "device": torch.cuda.get_device_name(device),
     }
+
+
+@torch.inference_mode()
+def measure_streaming_latency(model: GDKVM, device: torch.device, *,
+                              image_size: int = 112, chunk: int = 1,
+                              batch: int = 1, warmup: int = 5,
+                              timed: int = 50, seed: int = 0
+                              ) -> Dict[str, float]:
+    """Per-call serving latency (distinct from throughput): one chunk goes
+    from host memory to the device, through the model, and its checksum
+    comes back, synchronously: what a live scanner feed waits for.
+    ``chunk=1`` gives per-frame latency.  Percentiles over ``timed`` calls
+    after ``warmup``.  Raises unless ``device`` is a CUDA device."""
+    if device.type != "cuda":
+        raise ValueError(f"measure_streaming_latency times a CUDA device, got {device}")
+    rng = np.random.default_rng(seed)
+    host = torch.from_numpy(rng.integers(
+        0, 255, (batch, chunk, image_size, image_size, 1), np.uint8))
+
+    _, checksum, state = streaming_step(model, host.to(device), None)
+    checksum.item()
+    lats = []
+    for i in range(warmup + timed):
+        t0 = time.perf_counter()
+        _, checksum, state = streaming_step(model, host.to(device), state)
+        checksum.item()                       # the whole round trip
+        if i >= warmup:
+            lats.append(time.perf_counter() - t0)
+    lats_ms = np.asarray(lats) * 1e3
+    return {
+        "chunk": chunk,
+        "batch": batch,
+        "image_size": image_size,
+        "calls": timed,
+        "latency_ms_p50": float(np.percentile(lats_ms, 50)),
+        "latency_ms_p95": float(np.percentile(lats_ms, 95)),
+        "latency_ms_p99": float(np.percentile(lats_ms, 99)),
+        "latency_ms_mean": float(lats_ms.mean()),
+        "latency_ms_per_frame_p50": float(np.percentile(lats_ms, 50) / chunk),
+    }
+
+
+def measure_train_step_time(step: Callable[[], Dict[str, Tensor]],
+                            warmup: int = 2, timed: int = 10
+                            ) -> Dict[str, float]:
+    """Seconds a training step: ``step()`` runs one step on its own state
+    and batch (e.g. ``lambda: train_step(state, batch, cfg)``) and returns
+    its metrics.  The clock stops after a fetch of the last step's loss and
+    ``torch.cuda.synchronize()``.  Raises without a CUDA device."""
+    if not torch.cuda.is_available():
+        raise ValueError("measure_train_step_time times a CUDA device")
+    for _ in range(warmup):
+        metrics = step()
+    metrics["loss"].item()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        metrics = step()
+    metrics["loss"].item()
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / timed
+    return {"sec_per_step": dt, "steps_per_sec": 1.0 / dt}

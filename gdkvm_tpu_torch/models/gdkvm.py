@@ -48,10 +48,6 @@ class GDKVM(nn.Module):
             raise ValueError(
                 f"model.mem_stride={cfg.mem_stride} is not supported: the "
                 f"memory reads the encoder's deepest scale, stride 16")
-        if cfg.gdr_variant != "gdn":
-            raise NotImplementedError(
-                f"gdr_variant={cfg.gdr_variant!r} is not ported (ROADMAP "
-                f"Queue 1, item 2: the decoupled-η variants)")
         if cfg.quant != "none":
             raise NotImplementedError(
                 f"quant={cfg.quant!r} is not ported (ROADMAP Queue 1, item 9: "
@@ -66,7 +62,8 @@ class GDKVM(nn.Module):
                                stem=cfg.enc_stem, device=device)
         self.lkva = LKVAMemory(c16, cfg.num_classes, cfg.num_heads,
                                cfg.head_dim_k, cfg.head_dim_v, out_channels=c16,
-                               dtype=dt, gdr_impl=cfg.gdr_impl, device=device)
+                               dtype=dt, gdr_impl=cfg.gdr_impl,
+                               gdr_variant=cfg.gdr_variant, device=device)
         self.decoder = Decoder(tuple(cfg.kpff_channels), tuple(cfg.enc_channels),
                                c16, cfg.num_classes, dtype=dt, device=device)
 
@@ -145,7 +142,8 @@ def _lecun_normal_(p: Tensor, fan_in: int, gen: torch.Generator) -> None:
 def init_params(model: GDKVM, gen: torch.Generator) -> GDKVM:
     """Initialize as the JAX package does: lecun_normal kernels, zero
     biases, norm scales 1; the α projection's kernel 0 with bias 4 (α ≈ 0.98,
-    remember long) and the β bias −1.  ``gen`` is a CPU generator."""
+    remember long) and the β bias −1 (and the η bias −1 of a ``gdn2`` model).
+    ``gen`` is a CPU generator."""
     for mod in model.modules():
         if isinstance(mod, Conv):
             _, cin_g, kh, kw = mod.weight.shape
@@ -162,4 +160,6 @@ def init_params(model: GDKVM, gen: torch.Generator) -> GDKVM:
     lkva.alpha_proj.weight.zero_()
     lkva.alpha_proj.bias.fill_(4.0)
     lkva.beta_proj.bias.fill_(-1.0)
+    if lkva.gdr_variant == "gdn2":
+        lkva.eta_proj.bias.fill_(-1.0)
     return model

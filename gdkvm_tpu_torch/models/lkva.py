@@ -2,7 +2,9 @@
 
 Port of gdkvm_tpu/models/lkva.py: the projections and gates around the GDR
 scan, and the readout (per-head RMSNorm → SiLU gate → output projection).
-q, k and v enter the scan in the compute dtype; β and α stay fp32.
+q, k and v enter the scan in the compute dtype; β, η and α stay fp32.
+``gdr_variant="gdn2"`` adds the erase gate's projection ``eta_proj`` and
+passes η = sigmoid(eta_proj(x)) to the scan; "gdn" couples η = β.
 """
 
 from __future__ import annotations
@@ -38,9 +40,11 @@ class LKVAMemory(nn.Module):
     def __init__(self, in_channels: int, num_classes: int, num_heads: int = 4,
                  head_dim_k: int = 64, head_dim_v: int = 64,
                  out_channels: int = 128, dtype: torch.dtype = torch.bfloat16,
-                 gdr_impl: str = "auto",
+                 gdr_impl: str = "auto", gdr_variant: str = "gdn",
                  device: torch.device | str | None = None) -> None:
         super().__init__()
+        if gdr_variant not in ("gdn", "gdn2"):
+            raise ValueError(f"gdr_variant must be gdn|gdn2, got {gdr_variant!r}")
         if gdr_impl == "assoc":
             raise NotImplementedError(
                 "gdr_impl='assoc' is not ported (ROADMAP Queue 1, item 2: "
@@ -50,8 +54,8 @@ class LKVAMemory(nn.Module):
                              f"got {gdr_impl!r}")
         self.num_heads, self.head_dim_k, self.head_dim_v = (
             num_heads, head_dim_k, head_dim_v)
-        self.out_channels, self.dtype, self.gdr_impl = (
-            out_channels, dtype, gdr_impl)
+        self.out_channels, self.dtype, self.gdr_impl, self.gdr_variant = (
+            out_channels, dtype, gdr_impl, gdr_variant)
         h, dk, dv, c = num_heads, head_dim_k, head_dim_v, in_channels
         kw = dict(dtype=dtype, device=device)
         self.q_proj = Dense(c, h * dk, bias=False, **kw)
@@ -59,6 +63,10 @@ class LKVAMemory(nn.Module):
         self.v_proj = Dense(c, h * dv, bias=False, **kw)
         self.mask_proj = Dense(num_classes, h * dv, bias=False, **kw)
         self.beta_proj = Dense(c, h, **kw)      # bias −1 at init
+        if gdr_variant == "gdn2":
+            # The decoupled erase gate η: bias −1 at init, as β's, so
+            # training starts at the coupled rule's behaviour.
+            self.eta_proj = Dense(c, h, **kw)
         self.alpha_proj = Dense(c, h, **kw)     # kernel 0, bias 4 at init
         self.gate_proj = Dense(c, h * dv, **kw)
         self.out_proj = Dense(h * dv, out_channels, bias=False, **kw)
@@ -75,7 +83,8 @@ class LKVAMemory(nn.Module):
         """Write a prompted frame (features + mask) into the memory state.
 
         x_map (B, h, w, C) stride-16 features; mask_onehot (B, h, w, K);
-        state (B, H, dk, dv) → updated state fp32.
+        state (B, H, dk, dv) → updated state fp32.  The write is coupled
+        (η = β) in both variants, as in the JAX package.
         """
         b, hh, ww, c = x_map.shape
         x_tok = x_map.reshape(b, hh * ww, c)
@@ -100,6 +109,9 @@ class LKVAMemory(nn.Module):
         k = self._heads_l2(self.k_proj, x_tok).to(self.dtype)
         v = self.v_proj(x_tok).reshape(b, t, n, h, dv).to(self.dtype)
         beta = torch.sigmoid(self.beta_proj(x_tok).to(torch.float32))
+        eta = (torch.sigmoid(self.eta_proj(x_tok).to(torch.float32))
+               .permute(0, 3, 1, 2).contiguous()
+               if self.gdr_variant == "gdn2" else None)
         pooled = x_tok.to(torch.float32).mean(2)                  # (B,T,C)
         alpha = torch.sigmoid(
             self.alpha_proj(pooled.to(self.dtype)).to(torch.float32))
@@ -110,7 +122,7 @@ class LKVAMemory(nn.Module):
             k.permute(0, 3, 1, 2, 4).contiguous(),
             v.permute(0, 3, 1, 2, 4).contiguous(),
             beta.permute(0, 3, 1, 2).contiguous(),
-            alpha.permute(0, 2, 1).contiguous(), state)
+            alpha.permute(0, 2, 1).contiguous(), state, eta)
 
         o = self.o_norm(o.permute(0, 2, 3, 1, 4))                 # (B,T,N,H,dv)
         o = o.reshape(b, t, n, h * dv).to(self.dtype)

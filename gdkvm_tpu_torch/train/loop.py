@@ -1,4 +1,4 @@
-"""Training: optimizer, train step, train state and the loop.
+"""Training: optimizer, train step, train state and the whole run.
 
 Port of gdkvm_tpu/train/loop.py on one device.  The optimizer is the JAX
 package's optax chain written out: global-norm clip → AdamW on a
@@ -6,7 +6,9 @@ warmup-cosine schedule from 0 to the peak and down to 5%, inside
 ``optax.MultiSteps`` gradient accumulation.  The step samples first-frame
 prompts, weights bootstrapped CE by its schedule, takes the gradient of CE +
 soft Dice, applies the update and keeps an EMA of the params on applied
-updates.  Eval, checkpoints and the metrics logger are not ported yet.
+updates.  :func:`train` is the run: data from the device cache or the
+prefetched host pipeline, the metrics log, the periodic eval stage,
+checkpoints and resume.
 
 Under ``gdr_impl="auto"`` (kept at 256² by ``train_model_config``) the GDR
 scan of a CUDA model runs the forward kernel with residuals and the backward
@@ -15,16 +17,25 @@ chosen by ``GDKVM_GDR_BWD`` (ops/gdr_cuda.py).
 
 from __future__ import annotations
 
+import contextlib
 import math
+import os
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Tuple, Union
 
 import torch
 
-from gdkvm_tpu_torch.config.schema import Config
-from gdkvm_tpu_torch.data.pipeline import Batch, batch_iterator, make_dataset
+from gdkvm_tpu_torch.config.schema import Config, save_config_json
+from gdkvm_tpu_torch.data import device_cache as dc
+from gdkvm_tpu_torch.data.pipeline import (Batch, batch_iterator, make_dataset,
+                                           prefetch_to_device)
+from gdkvm_tpu_torch.eval.evaluator import evaluate
+from gdkvm_tpu_torch.io.checkpoint import CheckpointManager
+from gdkvm_tpu_torch.io.metrics_log import MetricsLogger
 from gdkvm_tpu_torch.models.gdkvm import GDKVM, init_params, train_model_config
 from gdkvm_tpu_torch.train import losses
+from gdkvm_tpu_torch.utils.profiling import (StepTimer, maybe_profile,
+                                             trace_annotation)
 
 Tensor = torch.Tensor
 
@@ -107,6 +118,35 @@ class Optimizer:
                 a.zero_()
         return True
 
+    def state_dict(self) -> Dict[str, object]:
+        """Everything a resumed run needs: the counts, the accumulation
+        buffer (None without accumulation) and AdamW's moments and step per
+        parameter (zeros before the first applied update)."""
+        st = self.adamw.state
+        get = lambda p, key: (st[p][key] if p in st and key in st[p]
+                              else torch.zeros_like(p))
+        return {"count": self.count, "mini_step": self.mini_step,
+                "acc": None if self.acc is None else list(self.acc),
+                "exp_avg": [get(p, "exp_avg") for p in self.params],
+                "exp_avg_sq": [get(p, "exp_avg_sq") for p in self.params],
+                "adam_step": [float(st[p]["step"]) if p in st else 0.0
+                              for p in self.params]}
+
+    @torch.no_grad()
+    def load_state_dict(self, sd: Dict[str, object]) -> None:
+        self.count, self.mini_step = int(sd["count"]), int(sd["mini_step"])
+        if self.acc is not None:
+            for a, saved in zip(self.acc, sd["acc"]):
+                a.copy_(saved)
+        self.adamw.state.clear()
+        for p, m, v, n in zip(self.params, sd["exp_avg"], sd["exp_avg_sq"],
+                              sd["adam_step"]):
+            if n > 0:
+                self.adamw.state[p] = {
+                    "step": torch.tensor(float(n), dtype=torch.float32),
+                    "exp_avg": m.to(p.device, copy=True),
+                    "exp_avg_sq": v.to(p.device, copy=True)}
+
 
 @dataclass
 class TrainState:
@@ -136,15 +176,64 @@ def state_for(cfg: Config, model: GDKVM) -> TrainState:
                       gen=torch.Generator().manual_seed(cfg.train.seed), ema=ema)
 
 
-def loss_and_grads(state: TrainState, batch: Batch, cfg: Config
-                   ) -> Tuple[Dict[str, Tensor], List[Tensor]]:
+def eval_params(state: TrainState, cfg: Config) -> List[Tensor]:
+    """Parameters to score: the EMA shadow when tracked and requested."""
+    if state.ema is not None and cfg.eval_stage.use_ema:
+        return state.ema
+    return state.opt.params
+
+
+@contextlib.contextmanager
+def use_params(model: GDKVM, values: List[Tensor]) -> Iterator[None]:
+    """Run the block with ``values`` (one tensor per parameter, in
+    ``model.parameters()`` order) in place of the model's parameters, by
+    swapping storage; nothing is copied and the swap is undone on exit."""
+    params = list(model.parameters())
+    swap = [(p, v) for p, v in zip(params, values) if p is not v]
+    for p, v in swap:
+        p.data, v.data = v.data, p.data
+    try:
+        yield
+    finally:
+        for p, v in swap:
+            p.data, v.data = v.data, p.data
+
+
+@dataclass
+class CacheSampler:
+    """The device cache as a batch source: ``sample(step)`` reseeds the
+    cache's generator from ``(train.seed, 17, data.seed, step)`` and draws
+    the step's batch on the device, so the batch is a pure function of the
+    step (the JAX package folds its key the same way)."""
+    cache: Union[dc.DeviceDataset, dc.VideoDeviceCache]
+    cfg: Config
+    gen: torch.Generator
+
+    def sample(self, step: int) -> Batch:
+        cfg = self.cfg
+        self.gen.manual_seed(dc.step_seed(
+            (cfg.train.seed, 17, cfg.data.seed, step)))
+        kw = dict(augment=cfg.data.augment, occlude_prob=cfg.data.occlude_prob)
+        if isinstance(self.cache, dc.VideoDeviceCache):
+            return dc.sample_video_batch(self.cache, self.gen, cfg.train.batch_size,
+                                         cfg.data.clip_len, **kw)
+        return dc.sample_batch(self.cache, self.gen, cfg.train.batch_size, **kw)
+
+
+def loss_and_grads(state: TrainState, batch: Union[Batch, CacheSampler],
+                   cfg: Config) -> Tuple[Dict[str, Tensor], List[Tensor]]:
     """The step's forward and backward, without the update: → (metrics
-    {loss, ce, dice_loss} as 0-dim device tensors, a gradient per param).
-    Draws the step's prompt bits from ``state.gen``."""
+    {loss, ce, dice_loss, batch_checksum} as 0-dim device tensors, a
+    gradient per param).  ``batch`` is a Batch, or a :class:`CacheSampler`
+    that draws this step's batch on the device.  Draws the step's prompt
+    bits from ``state.gen``."""
     t = cfg.train
     params = state.opt.params
     dev = params[0].device
-    frames = normalize_frames(torch.as_tensor(batch.frames, device=dev))
+    if isinstance(batch, CacheSampler):
+        batch = batch.sample(state.step)
+    frames_u8 = torch.as_tensor(batch.frames, device=dev)
+    frames = normalize_frames(frames_u8)
     masks = torch.as_tensor(batch.masks, device=dev).long()
     valid = torch.as_tensor(batch.valid, device=dev).to(torch.float32)
     b = frames.shape[0]
@@ -160,15 +249,20 @@ def loss_and_grads(state: TrainState, batch: Batch, cfg: Config
         logits, masks, valid, ce_weight=t.ce_weight, dice_weight=t.dice_weight,
         bootstrap_ratio=t.bootstrap_ratio, bootstrap_weight=bweight)
     grads = torch.autograd.grad(loss, params)
-    return {k: v.detach() for k, v in aux.items()}, list(grads)
+    metrics = {k: v.detach() for k, v in aux.items()}
+    # Sum of the batch's bytes: two runs that log the same value at a step
+    # saw the same batch there (exact below 2^53).
+    metrics["batch_checksum"] = (frames_u8.sum(dtype=torch.int64)
+                                 + masks.sum()).to(torch.float64)
+    return metrics, list(grads)
 
 
-def train_step(state: TrainState, batch: Batch, cfg: Config
+def train_step(state: TrainState, batch: Union[Batch, CacheSampler], cfg: Config
                ) -> Dict[str, Tensor]:
     """One micro-step: loss → grads → update → EMA.  Updates ``state`` in
     place and returns the step's metrics (0-dim tensors on the device):
-    loss, ce, dice_loss, and grad_norm (micro_grad_norm under
-    accumulation: the norm of this micro-step's grads)."""
+    loss, ce, dice_loss, batch_checksum, and grad_norm (micro_grad_norm
+    under accumulation: the norm of this micro-step's grads)."""
     t = cfg.train
     metrics, grads = loss_and_grads(state, batch, cfg)
     norm_key = "micro_grad_norm" if t.accum_steps > 1 else "grad_norm"
@@ -184,23 +278,107 @@ def train_step(state: TrainState, batch: Batch, cfg: Config
 
 def train(cfg: Config, max_steps: Optional[int] = None,
           device: torch.device | str = "cuda") -> Dict[str, float]:
-    """Train from scratch on ``cfg`` for ``max_steps`` micro-steps (default
-    ``num_iterations``) on ``device``, the CUDA device unless the caller
-    asks for the CPU; return the last step's metrics as floats.  Raises
-    when ``device`` is CUDA and there is no card: it never falls back."""
+    """The whole training run on ``device``, the CUDA device unless the
+    caller asks for the CPU; raises when ``device`` is CUDA and there is no
+    card: it never falls back.
+
+    Under ``cfg.runtime.run_dir`` it writes ``config.json``, the metrics
+    log ``metrics.jsonl`` (every ``log_every`` steps, with steps/s and
+    frames/s of the window), ``checkpoints/`` (every ``checkpoint_every``
+    steps and at the end), the eval stage's overlays ``vis/`` (every
+    ``eval_every`` steps and at the end, scoring the EMA weights when
+    tracked) and, under ``runtime.profile``, ``trace/``.  With
+    ``runtime.resume`` it continues from the latest checkpoint and sees the
+    batches an unbroken run would have seen.  Data comes from the device
+    cache when the split fits (``data.device_cache``), else from the
+    threaded host pipeline through the prefetcher.  Runs ``max_steps``
+    micro-steps in all (default ``num_iterations``) and returns the last
+    logged metrics and the last eval's, as floats."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("train: no CUDA device; pass device='cpu' to train "
                            "on the CPU")
+    run_dir = cfg.runtime.run_dir
+    os.makedirs(run_dir, exist_ok=True)
+    save_config_json(cfg, os.path.join(run_dir, "config.json"))
+    logger = MetricsLogger(run_dir, wandb_mode=cfg.eval_stage.wandb_mode)
+
     model = GDKVM(train_model_config(cfg.model, cfg.data.image_size),
                   device=device)
     state = create_train_state(cfg, model)
+
+    ckpt = CheckpointManager(os.path.join(run_dir, "checkpoints"))
+    start_step = 0
+    if cfg.runtime.resume and ckpt.latest_step() is not None:
+        state = ckpt.restore(state)
+        start_step = state.step
+
     dataset = make_dataset(cfg.data, cfg.data.train_split, cfg.model.num_classes)
-    it = batch_iterator(dataset, cfg.train.batch_size, shuffle=True,
-                        augment=cfg.data.augment,
-                        occlude_prob=cfg.data.occlude_prob, seed=cfg.data.seed)
+    cache_mode = dc.resolve_cache_mode(cfg.data, dataset)
+    cache = None
+    if cache_mode == "video":
+        # One bulk upload; batches are sampled and augmented in the step.
+        cache = dc.build_video_cache(
+            dataset, cfg.data.clip_len, device,
+            max_bytes=cfg.data.device_cache_max_mb * 2**20)
+    elif cache_mode == "clip":
+        cache = dc.build_device_cache(dataset, device)
+    if cache is not None:
+        source, it = CacheSampler(cache, cfg, torch.Generator(device=device)), None
+    else:
+        it = prefetch_to_device(
+            batch_iterator(dataset, cfg.train.batch_size, shuffle=True,
+                           augment=cfg.data.augment,
+                           occlude_prob=cfg.data.occlude_prob,
+                           seed=cfg.data.seed,
+                           num_workers=cfg.data.num_workers,
+                           start_step=start_step),
+            size=cfg.data.prefetch, device=device)
+
     total = cfg.train.num_iterations if max_steps is None else max_steps
-    metrics: Dict[str, Tensor] = {}
-    for _ in range(total):
-        metrics = train_step(state, next(it), cfg)
-    return {k: float(v) for k, v in metrics.items()}
+    last_eval: Dict[str, float] = {}
+    final_metrics: Dict[str, float] = {}
+    timer = StepTimer(skip=1)           # the first step builds and warms up
+    trace_dir = os.path.join(run_dir, "trace") if cfg.runtime.profile else None
+
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(maybe_profile(trace_dir))
+        if cfg.runtime.debug_nans:
+            stack.enter_context(torch.autograd.set_detect_anomaly(True))
+        if it is not None:
+            stack.callback(it.close)    # stops the prefetcher's thread
+        for step_idx in range(start_step, total):
+            batch = source if it is None else next(it)
+            with trace_annotation("train_step"):
+                metrics = train_step(state, batch, cfg)
+            timer.lap(metrics["loss"])
+
+            if (step_idx + 1) % cfg.train.log_every == 0 or step_idx == 0:
+                logged = {k: float(v) for k, v in metrics.items()}   # the fetch
+                logged.update(timer.stats())
+                if "steps_per_sec" in logged:
+                    logged["frames_per_sec"] = (
+                        logged["steps_per_sec"] * cfg.train.batch_size
+                        * cfg.data.clip_len)
+                logger.log(step_idx + 1, logged)
+                final_metrics = logged
+                timer.reset_window()
+
+            if (step_idx + 1) % cfg.train.eval_every == 0 or step_idx + 1 == total:
+                with trace_annotation("eval_stage"), \
+                        use_params(model, eval_params(state, cfg)):
+                    last_eval = evaluate(cfg, model, device, step=step_idx + 1)
+                logger.log(step_idx + 1, {f"eval/{k}": v
+                                          for k, v in last_eval.items()})
+                timer.reset_window()
+
+            if (step_idx + 1) % cfg.train.checkpoint_every == 0 or \
+                    step_idx + 1 == total:
+                ckpt.save(step_idx + 1, state)
+                timer.reset_window()
+
+    ckpt.wait()
+    ckpt.close()
+    logger.close()
+    final_metrics.update({f"eval/{k}": v for k, v in last_eval.items()})
+    return final_metrics

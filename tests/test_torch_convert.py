@@ -120,7 +120,7 @@ def _port_modules():
 
 _GUARD = r"""
 import importlib, sys
-BLOCKED = {"jax", "flax", "gdkvm_tpu"}
+BLOCKED = {"jax", "flax", "optax", "orbax", "yaml", "gdkvm_tpu"}
 for name in list(sys.modules):
     if name.split(".")[0] in BLOCKED:
         del sys.modules[name]
@@ -141,10 +141,15 @@ print("imported", len(sys.argv) - 1)
 
 
 def test_port_imports_without_jax():
-    """Every port module imports in a process that refuses jax, flax and
-    gdkvm_tpu (the exact top-level name)."""
+    """Every port module imports in a process that refuses jax, flax,
+    optax, orbax, yaml and gdkvm_tpu (the exact top-level name)."""
     mods = _port_modules()
-    assert "gdkvm_tpu_torch.models.gdkvm" in mods and len(mods) >= 15
+    assert "gdkvm_tpu_torch.models.gdkvm" in mods and len(mods) >= 30
+    for name in ("train.loop", "eval.evaluator", "eval.streaming", "eval.parity",
+                 "eval.vis", "data.device_cache", "data.camus", "data.camus_raw",
+                 "data.echonet", "data.packed", "io.checkpoint", "io.metrics_log",
+                 "utils.profiling", "utils.optional"):
+        assert f"gdkvm_tpu_torch.{name}" in mods, name
     res = subprocess.run([sys.executable, "-c", _GUARD, *mods], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
@@ -152,8 +157,8 @@ def test_port_imports_without_jax():
 
 
 def test_no_jax_imports_in_sources():
-    """Static scan: no import of jax, flax or gdkvm_tpu in the port, in
-    chip_smoke.py or in kernel_turns.py."""
+    """Static scan: no import of jax, flax, optax, orbax, yaml or gdkvm_tpu
+    in the port, in chip_smoke.py or in kernel_turns.py."""
     files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "kernel_turns.py"]
     bad = []
     for f in files:
@@ -164,7 +169,8 @@ def test_no_jax_imports_in_sources():
             elif isinstance(node, ast.ImportFrom) and node.level == 0:
                 names = [node.module]
             bad += [f"{f.name}: {n}" for n in names
-                    if n.split(".")[0] in ("jax", "flax", "gdkvm_tpu")]
+                    if n.split(".")[0] in ("jax", "flax", "optax", "orbax", "yaml",
+                                           "gdkvm_tpu")]
     assert not bad, bad
 
 

@@ -258,9 +258,16 @@ def test_init_params_follows_reference_initializers():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("gdr_variant", "gdn2"), ("gdr_impl", "assoc"), ("quant", "w8a8-x")])
+    ("gdr_variant", "gdn3"), ("gdr_impl", "assoc"), ("quant", "w8a8-x")])
 def test_unported_options_raise(field, value):
+    """Options the port does not run raise, naming their ROADMAP item; a
+    variant neither package has is a ValueError, as in the JAX package
+    (gdn2 is ported: tests/test_torch_gdn2.py)."""
     cfg = dataclasses.replace(ModelConfig(**NARROW), **{field: value})
+    if field == "gdr_variant":
+        with pytest.raises(ValueError, match="gdn2"):
+            GDKVM(cfg, device="cpu")
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         GDKVM(cfg, device="cpu")
 

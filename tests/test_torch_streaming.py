@@ -19,7 +19,8 @@ from gdkvm_tpu.config import schema as jschema
 from gdkvm_tpu.eval import streaming as jstreaming
 from gdkvm_tpu.models.gdkvm import GDKVM as JGDKVM
 from gdkvm_tpu.ops import preproc as jpreproc
-from gdkvm_tpu_torch.config.schema import (Config, DataConfig, ModelConfig,
+from gdkvm_tpu_torch.config.schema import (Config, DataConfig, EvalStageConfig,
+                                           ModelConfig, RuntimeConfig,
                                            TrainConfig, ts8_112)
 from gdkvm_tpu_torch.eval.metrics import mask_from_logits
 from gdkvm_tpu_torch.eval.streaming import StreamingSegmenter, stream_video
@@ -89,7 +90,9 @@ def test_ts8_112_preset_matches_yaml():
                                    for f in dataclasses.fields(cls)})
     want = Config(model=pick(ModelConfig, jcfg.model),
                   data=pick(DataConfig, jcfg.data),
-                  train=pick(TrainConfig, jcfg.train))
+                  train=pick(TrainConfig, jcfg.train),
+                  eval_stage=pick(EvalStageConfig, jcfg.eval_stage),
+                  runtime=pick(RuntimeConfig, jcfg.runtime))
     got = ts8_112()
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
     assert got.data.image_size == 112 and got.model.num_classes == 4

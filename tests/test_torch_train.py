@@ -21,7 +21,8 @@ from gdkvm_tpu.data import synthetic as jsynthetic
 from gdkvm_tpu.models.gdkvm import train_model_config as j_train_model_config
 from gdkvm_tpu.train import losses as jlosses
 from gdkvm_tpu.train.loop import make_optimizer
-from gdkvm_tpu_torch.config.schema import (Config, DataConfig, ModelConfig,
+from gdkvm_tpu_torch.config.schema import (Config, DataConfig, EvalStageConfig,
+                                           ModelConfig, RuntimeConfig,
                                            TrainConfig, ts8_256)
 from gdkvm_tpu_torch.data import pipeline, synthetic
 from gdkvm_tpu_torch.models.gdkvm import train_model_config
@@ -37,7 +38,9 @@ def port_config(jcfg: jschema.Config) -> Config:
                                    for f in dataclasses.fields(cls)})
     return Config(model=pick(ModelConfig, jcfg.model),
                   data=pick(DataConfig, jcfg.data),
-                  train=pick(TrainConfig, jcfg.train))
+                  train=pick(TrainConfig, jcfg.train),
+                  eval_stage=pick(EvalStageConfig, jcfg.eval_stage),
+                  runtime=pick(RuntimeConfig, jcfg.runtime))
 
 
 def _jax_config(**train) -> jschema.Config:
@@ -58,12 +61,23 @@ def test_ts8_256_preset_matches_yaml():
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
     assert got.data.image_size == 256 and got.model.num_classes == 4
     assert got.train.bootstrap_ratio == 0.15
+    assert got.data.dataset == "camus" and got.data.data_path.startswith("/data/camus")
+    assert ts8_256("/x").data.data_path == "/x"
 
 
 @pytest.mark.parametrize("cls,ref", [(DataConfig, jschema.DataConfig),
-                                     (TrainConfig, jschema.TrainConfig)])
+                                     (TrainConfig, jschema.TrainConfig),
+                                     (EvalStageConfig, jschema.EvalStageConfig),
+                                     (RuntimeConfig, jschema.RuntimeConfig),
+                                     (Config, jschema.Config)])
 def test_config_fields_match_jax(cls, ref):
-    """The port's data and train fields are JAX fields with JAX defaults."""
+    """The port's data, train, eval-stage and runtime fields, and the
+    sections of Config, are JAX fields with JAX defaults."""
+    if cls is Config:
+        sections = {f.name for f in dataclasses.fields(cls)}
+        assert sections <= {f.name for f in dataclasses.fields(ref)}
+        assert sections == {"model", "data", "train", "eval_stage", "runtime"}
+        return
     ref_defaults = {f.name: f.default for f in dataclasses.fields(ref)}
     for f in dataclasses.fields(cls):
         assert f.name in ref_defaults, f.name
@@ -266,16 +280,17 @@ def test_batch_iterator_matches_jax_host_path():
         b, b_j = next(it), next(it_j)
         for name in ("frames", "masks", "valid"):
             np.testing.assert_array_equal(getattr(b, name), getattr(b_j, name))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(FileNotFoundError, match="CAMUS split directory"):
         pipeline.make_dataset(dataclasses.replace(data, dataset="camus"), "train", 4)
 
 
 # ------------------------------------------------------------------ loop
 
 
-def test_train_runs_on_cpu():
+def test_train_runs_on_cpu(tmp_path):
     """train(cfg, max_steps) on a tiny synthetic config returns the last
-    step's finite metrics; under accumulation the norm is the micro-step's."""
+    logged step's finite metrics and the final eval's; under accumulation
+    the norm is the micro-step's."""
     model = ModelConfig(enc_channels=(8, 8, 16, 16), enc_blocks=(1, 1, 1, 1),
                         num_heads=1, head_dim_k=8, head_dim_v=8,
                         kpff_channels=(8, 8), compute_dtype="float32")
@@ -283,10 +298,15 @@ def test_train_runs_on_cpu():
                  data=DataConfig(image_size=32, clip_len=2, occlude_prob=0.5),
                  train=TrainConfig(batch_size=2, num_iterations=4,
                                    warmup_iterations=1, bootstrap_ratio=0.25,
-                                   ema_decay=0.9, accum_steps=2))
+                                   ema_decay=0.9, accum_steps=2),
+                 eval_stage=EvalStageConfig(wandb_mode="disabled", num_vis=0),
+                 runtime=RuntimeConfig(run_dir=str(tmp_path)))
     metrics = train(cfg, max_steps=3, device="cpu")
-    assert set(metrics) == {"loss", "ce", "dice_loss", "micro_grad_norm"}
+    assert {"loss", "ce", "dice_loss", "micro_grad_norm", "batch_checksum",
+            "eval/dice_fg_mean", "eval/frames"} <= set(metrics)
+    assert "grad_norm" not in metrics
     assert all(np.isfinite(v) for v in metrics.values())
+    assert (tmp_path / "checkpoints" / "step_00000003.pt").exists()
 
 
 def test_train_defaults_to_cuda_and_never_falls_back(monkeypatch):
