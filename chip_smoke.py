@@ -22,7 +22,8 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    autograd Function; the bf16 residuals (``GDKVM_GDR_SAVE_DTYPE=bf16``)
    against the plain rounding; the chain kernel
    against ``gdr_chain`` at the serving shapes (B=8 H=4 T=16 and 32 N=49),
-   the training shape, N=7, d_k≠d_v and T=1, chained calls, and the chain
+   the training shape, N=7, d_k≠d_v, T=1, d=48 (H=2) and H=6 (N=256),
+   chained calls, and the chain
    split (batched solve + kernel) against the monolith kernel; the
    forward's WY solve kernel, through the U, W the forward returns,
    against the batched solve;
@@ -39,16 +40,16 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    ``ts8_256`` recipe (256², batch 8 × 10 frames, 4 classes, bootstrapped
    CE) on synthetic clips, in the stored and the fused backward mode, with
    every kernel's and plain version's calls counted (the run ends with the
-   eval stage over 8 val clips: residual-free launches), then the same
-   with the chain forward; one step's gradients (finite everywhere, nonzero in
+   eval stage over 8 val clips: residual-free launches), then the stored
+   mode with the chain forward; one step's gradients (finite everywhere, nonzero in
    the LKVA projections) and the kernel path against the plain chunked
    path from the same weights, and chain against monolith;
 7. the training run (the fourth main path): ``train(cfg)`` on the
    ``ts8_256`` recipe with data from disk, written here from a seed: a
-   packed train/val split (64 + 8 clips of 10 frames at 256²) with the
-   device cache on and off (thread pool, pinned prefetch), and the CAMUS
-   PNG layout where PIL imports; 12 steps with the eval stage and a
-   checkpoint every 6, EMA on; the JSONL, checkpoints and overlays are
+   packed train/val split (32 + 8 clips of 10 frames at 256²) from the
+   device cache, and the CAMUS PNG layout through the thread pool and the
+   pinned prefetch (the packed file, where PIL does not import); 12 steps
+   with the eval stage and a checkpoint every 6, EMA on; the JSONL, checkpoints and overlays are
    checked, every launch is counted (one forward with residuals a step,
    none during eval, no plain GDR call), steps/s with the data path
    inside is printed; a run resumed from checkpoint 6 is held against the
@@ -56,9 +57,25 @@ Phases, each of which fails the run (nonzero exit) when it fails:
 8. the ``gdn2`` model (η ≠ β from the model): a streamed chunk and two
    training steps under the stored and the fused backward against the same
    weights through the plain chunked GDR;
-9. streaming eval: ``stream_evaluate`` on 8 synthetic videos of 128 frames
+9. streaming eval: ``stream_evaluate`` on 8 synthetic videos of 64 frames
    at 112², one stream against 8 in flight;
-10. times on the card: frames/s of streaming and steps/s of training on both
+10. the command line (the fifth main path): ``python -m gdkvm_tpu_torch
+   <command> --config configs/<file>.yaml key=value`` at the full width of
+   the ts8 model, through ``cli.main`` in this process with every launch
+   counted (``info`` and ``serve`` as real subprocesses): ``pack`` of the
+   PNG layout and ``validate-data``; ``train`` 12 steps of
+   ``configs/gdkvm_ts8_256.yaml`` on the packed split (``config.yaml`` read
+   back by ``load_config``); ``eval``, ``stream-eval --streams 8``,
+   ``parity`` (CAMUS official scoring, biplane EF, the memory ablation) and
+   ``infer`` (a PNG directory at another size, resized on the device and
+   on the host) from the run's checkpoint, residual-free launches only;
+   ``serve`` of ``configs/gdkvm_ts8_112.yaml`` on port 0 with
+   ``serve-bench`` against it, ended by SIGINT; ``bench`` in every mode
+   (and once each through the backward kernel and the chain split);
+   ``sweep``; ``scale``; and ``stream-eval`` of the two other documented
+   models, ``gdkvm_rt_112`` (H=2, d=48) and ``gdkvm_base_256`` (H=6,
+   N=256), against the same call under ``gdr_impl=chunked``;
+11. times on the card: frames/s of streaming and steps/s of training on both
    paths; serving frames/s, request latency p50/p95/p99 (16- and 256-frame
    requests), queue wait and service time and peak memory per forward
    split, in turns; each kernel against its plain version at its main
@@ -78,8 +95,10 @@ exits nonzero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import os
+import signal
 import statistics
 import subprocess
 import sys
@@ -162,49 +181,11 @@ PEAK_BYTES_PER_S = 3.35e12
 
 # Operations of a kernel are the function's products, counted in TF32
 # passes at the card's fp32-accurate rate whatever unit a design runs them
-# on: a product of fp32 operands is three passes (3xTF32, csrc/gdr_mma.cuh),
-# one fewer for each operand exact in TF32 (a bf16 q or k), so A = ηKKᵀ of
-# bf16 K is one.  The 3xTF32 rate is above fp32 FMAs' 67 TFLOP/s, so this is
-# the least time for the function on this card.
-
-
-def _passes(exact_a: bool, exact_b: bool) -> int:
-    return 3 - exact_a - exact_b
-
-
-def _solve_ops(b, h, t, n, dk, dv, exact: bool) -> int:
-    """The WY solve of every frame: A (N(N-1)/2 entries of 2 d_k; K exact
-    when bf16) and the substitution (N(N-1)/2 entries times d_v + d_k
-    columns, 2 each; fp32 operands).  A design's own work (the 16 × 16
-    inverses) is not counted."""
-    a, subst = b * h * t * n * (n - 1) * dk, b * h * t * n * (n - 1) * (dk + dv)
-    return a * _passes(exact, exact) + subst * _passes(False, False)
-
-
-def _chain_ops(b, h, t, n, dk, dv, exact: bool) -> int:
-    """Q S̃, W S̃ and Kᵀ M of every frame (2 N d_k d_v each): Q and K exact
-    when bf16, W, S̃ and M fp32."""
-    one = 2 * b * h * t * n * dk * dv
-    return one * (2 * _passes(exact, False) + _passes(False, False))
-
-
-def _fwd_ops(b, h, t, n, dk, dv, exact: bool) -> int:
-    """The forward: every frame's solve, then the chain."""
-    return _solve_ops(b, h, t, n, dk, dv, exact) + _chain_ops(b, h, t, n, dk, dv, exact)
-
-
-def _bwd_ops(b, h, t, n, dk, dv, exact: bool) -> int:
-    """The backward recomputing each frame's solve: the WY solve as
-    ``_solve_ops``; the transposed solve and dA = stril(Y Xᵀ) (N(N-1)
-    times d_v + d_k each, fp32 operands), dA K (K exact when bf16) and
-    dAᵀ(ηK) (N(N-1) d_k each), and seven N × d_k × d_v products: K g and
-    Qᵀ dO (K, Q exact when bf16), dO S̃ᵀ, W S̃, (K g) S̃ᵀ, Wᵀ(K g) and M gᵀ.
-    What a design repeats (A's blocks, K g, S̃ gᵀ in the adjoint) is its
-    own work, not counted."""
-    frames, nn = b * h * t, n * (n - 1)
-    return _solve_ops(b, h, t, n, dk, dv, exact) + frames * (
-        nn * (6 * (dk + dv) + dk * (_passes(False, exact) + 3))
-        + 2 * n * dk * dv * (2 * _passes(exact, False) + 5 * 3))
+# on (gdkvm_tpu_torch/ops/gdr_counts.py, which the package's module
+# breakdown shares): a product of fp32 operands is three passes, one fewer
+# for each operand exact in TF32 (a bf16 q or k).  The 3xTF32 rate is above
+# fp32 FMAs' 67 TFLOP/s, so this is the least time for the function on this
+# card.
 
 
 def _nbytes(*xs) -> int:
@@ -238,6 +219,8 @@ RTOL, ATOL = 1e-4, 1e-5
 FWD_REL = BWD_REL = 1e-5
 # Shapes of the residual-forward and backward comparisons.
 TRAIN_SHAPE = (8, 4, 10, 256, 64, 64)
+RT_SHAPE = (8, 2, 16, 49, 48, 48)
+BASE_SHAPE = (2, 6, 10, 256, 64, 64)
 GRAD_CASES = [
     ("train bf16", TRAIN_SHAPE, "bfloat16"),
     ("train fp32", (2, 4, 10, 256, 64, 64), "float32"),
@@ -247,6 +230,10 @@ GRAD_CASES = [
     ("N=301 (largest)", (1, 2, 2, 301, 64, 64), "float32"),
     ("T=1", (8, 4, 1, 256, 64, 64), "bfloat16"),
     ("dk=32 dv=64", (2, 3, 5, 256, 32, 64), "float32"),
+    # The other documented models' shapes: configs/gdkvm_rt_112.yaml (H=2,
+    # d_k=d_v=48: 3 column blocks a chain) and gdkvm_base_256.yaml (H=6).
+    ("rt d=48", RT_SHAPE, "bfloat16"),
+    ("base H=6", BASE_SHAPE, "bfloat16"),
 ]
 
 
@@ -296,7 +283,7 @@ def phase_build() -> None:
             ("chain columns", fwd.gdr_chain_cols(), gdr_cuda.CHAIN_COLS)):
         if c_val != py_val:
             raise AssertionError(f"{what}: source {c_val}, wrapper {py_val}")
-    for dk in (8, 32, 40, 64, 128):
+    for dk in (8, 32, 40, 48, 64, 128):
         for bf16 in (0, 1):
             for what, c_val, py_val in (
                     ("chain", fwd.gdr_chain_smem_bytes(dk, bf16),
@@ -306,7 +293,7 @@ def phase_build() -> None:
                 if c_val != py_val:
                     raise AssertionError(f"{what} smem at d_k={dk} bf16={bf16}: "
                                          f"source {c_val}, wrapper {py_val}")
-    for n, dk, dv in ((49, 64, 64), (7, 8, 8), (64, 64, 64), (137, 64, 64),
+    for n, dk, dv in ((49, 64, 64), (49, 48, 48), (7, 8, 8), (64, 64, 64), (137, 64, 64),
                       (157, 64, 64), (158, 64, 64), (256, 64, 64),
                       (256, 32, 64), (301, 64, 64), (71, 128, 128)):
         pairs = [
@@ -348,6 +335,20 @@ def phase_kernel_vs_plain(device) -> float:
         ("eval N=256 fp32", (2, 4, 10, 256, 64, 64), torch.float32),
         ("N=256 eta", (1, 4, 10, 256, 64, 64), torch.bfloat16),
         ("bench eta", bench, torch.bfloat16),
+        ("rt d=48", RT_SHAPE, torch.bfloat16),
+        ("rt d=48 fp32", RT_SHAPE, torch.float32),
+        ("base H=6", BASE_SHAPE, torch.bfloat16),
+        ("base H=6 eta", BASE_SHAPE, torch.bfloat16),
+        # The shapes the command line gives this kernel (phase_cli): the
+        # memory ablation's single frames, stream-eval of 8 streams and
+        # infer at 256², bench's latency and modules modes, and the rt_112
+        # and base_256 models' streams in fp32 compute.
+        ("cli ablate, one frame", (1, 4, 1, 256, 64, 64), torch.bfloat16),
+        ("cli stream-eval, 8 streams at 256²", (8, 4, 16, 256, 64, 64), torch.bfloat16),
+        ("cli infer", (1, 4, 16, 256, 64, 64), torch.bfloat16),
+        ("cli bench latency, modules", (1, 4, 16, 49, 64, 64), torch.bfloat16),
+        ("cli rt_112 stream", (1, 2, 16, 49, 48, 48), torch.float32),
+        ("cli base_256 stream", (1, 6, 16, 256, 64, 64), torch.float32),
     ]
     worst = 0.0
     for name, shape, dtype in cases:
@@ -563,6 +564,9 @@ CHAIN_CASES = [
     # Rows the tiles' cp.async path does not take (d_k not a multiple of 16,
     # d_v not of 4): plain loads with zero padding.
     ("dk=40 dv=10", (2, 3, 5, 49, 40, 10), "bfloat16", True),
+    ("rt d=48", RT_SHAPE, "bfloat16", False),
+    ("rt d=48", RT_SHAPE, "bfloat16", True),
+    ("base H=6", BASE_SHAPE, "bfloat16", True),
 ]
 
 
@@ -649,6 +653,8 @@ SOLVE_CASES = [
     ("dk=64 dv=40", (2, 3, 5, 49, 64, 40), "float32"),
     ("d=128 N=71", (1, 2, 2, 71, 128, 128), "float32"),
     ("dk=40 dv=10", (2, 3, 5, 49, 40, 10), "bfloat16"),
+    ("rt d=48", RT_SHAPE, "bfloat16"),
+    ("base H=6", BASE_SHAPE, "bfloat16"),
 ]
 
 
@@ -677,7 +683,7 @@ def phase_gdr_times(device) -> dict:
     kernel's bound."""
     import torch
     from gdkvm_tpu_torch.core import gdr
-    from gdkvm_tpu_torch.ops import gdr_cuda
+    from gdkvm_tpu_torch.ops import gdr_counts, gdr_cuda
     gen = torch.Generator(device=device).manual_seed(1)
     shape = (8, 4, 32, 49, 64, 64)
     args = _gdr_inputs(gen, *shape, torch.bfloat16, device)
@@ -686,7 +692,7 @@ def phase_gdr_times(device) -> dict:
     print(f"GDR fwd at B=8 H=4 T=32 N=49 d=64 bf16 q/k/v: kernel "
           f"{kern_ms:.4f} ms, plain {plain_ms:.4f} ms ({spread})")
     out = gdr_cuda.gdr_fwd_cuda(*args)
-    return dict(_bound("fwd, streaming", kern_ms, _fwd_ops(*shape, exact=True),
+    return dict(_bound("fwd, streaming", kern_ms, gdr_counts.fwd_ops(*shape, exact=True),
                        _nbytes(*args, *out)), plain_ms=plain_ms)
 
 
@@ -787,7 +793,7 @@ def _stream_profile(model, device, warmup: int = 3, chunks: int = 3) -> None:
     for i in range(warmup):
         chunk(i)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()     # the profiler's own start-up excluded
         for i in range(warmup, warmup + chunks):
             chunk(i)
@@ -1035,9 +1041,9 @@ def phase_train_times(device) -> dict:
         rates[mode].append(n / (time.perf_counter() - t0))
         peak[mode] = torch.cuda.max_memory_allocated(device) / 2**20
         if mode not in device_ms:
-            device_ms[mode] = _profiled_ms(lambda: train_step(state, batch, cfg), iters=5)
+            device_ms[mode] = _profiled_ms(lambda: train_step(state, batch, cfg), iters=3)
     os.environ.pop("GDKVM_GDR_BWD")
-    print("train device kernel time a step (torch.profiler, 5 steps): "
+    print("train device kernel time a step (torch.profiler, 3 steps): "
           + ", ".join(f"{m} {'not measured' if t is None else f'{t:.3f} ms'}"
                       for m, t in device_ms.items()))
     print(f"train steps/s in turns ({', '.join(order)}), 8 steps each after 2: "
@@ -1055,7 +1061,7 @@ def phase_train_kernel_times(device) -> dict:
     training shape, timed in turns; the stored backward beside them."""
     import torch
     from gdkvm_tpu_torch.core import gdr
-    from gdkvm_tpu_torch.ops import gdr_cuda
+    from gdkvm_tpu_torch.ops import gdr_counts, gdr_cuda
     gen = torch.Generator(device=device).manual_seed(4)
     q, k, v, beta, alpha, s0 = _gdr_inputs(gen, *TRAIN_SHAPE, torch.bfloat16,
                                            device)
@@ -1095,10 +1101,10 @@ def phase_train_kernel_times(device) -> dict:
     fwd_out = gdr_cuda.gdr_fwd_cuda_residuals(q, k, v, beta, alpha, s0)
     bwd_out = gdr_cuda.gdr_bwd_cuda(*args)
     return {"fwd": dict(_bound("fwd+residuals, training", f_ms,
-                               _fwd_ops(*TRAIN_SHAPE, exact=True),
+                               gdr_counts.fwd_ops(*TRAIN_SHAPE, exact=True),
                                _nbytes(q, k, v, beta, alpha, s0, *fwd_out)),
                         plain_ms=f_plain),
-            "bwd": dict(_bound("bwd, training", b_ms, _bwd_ops(*TRAIN_SHAPE, exact=True),
+            "bwd": dict(_bound("bwd, training", b_ms, gdr_counts.bwd_ops(*TRAIN_SHAPE, exact=True),
                                _nbytes(*args, *bwd_out)),
                         plain_ms=b_plain, stored_ms=stored_ms)}
 
@@ -1302,8 +1308,8 @@ def _bench_sessions(addr, sessions: int, frames: int, per_request: int) -> dict:
 
 # (name, frames per request, frames per session): one chunk per request, the
 # live-scanner pattern; 256-frame requests, the cine-upload pattern.
-SERVE_PATTERNS = (("live 16-frame requests", 16, 512),
-                  ("cine 256-frame requests", 256, 1024))
+SERVE_PATTERNS = (("live 16-frame requests", 16, 256),
+                  ("cine 256-frame requests", 256, 512))
 
 
 def phase_serve_times(device, model) -> dict:
@@ -1348,33 +1354,28 @@ def phase_serve_times(device, model) -> dict:
 
 def phase_chain_train(device) -> int:
     """Training with GDKVM_GDR_FWD=chain: ``train(cfg, max_steps)`` on the
-    ts8_256 recipe under the stored and the fused backward, counts 0 just
-    before and read just after; then one step's loss and gradient norm in
-    fp32 compute, chain against monolith, from the same weights and batch.
-    Returns the chain launches of the two training runs."""
+    ts8_256 recipe under the stored backward, counts 0 just before and read
+    just after; then one step in fp32 compute under either backward, chain
+    against monolith, from the same weights and batch: its launches, loss
+    and gradient norm.  Returns the chain launches of the training run."""
     import dataclasses
     import math
     from gdkvm_tpu_torch.models.gdkvm import train_model_config
     from gdkvm_tpu_torch.train.loop import global_norm, loss_and_grads, train
     cfg = _train_cfg()
-    os.environ["GDKVM_GDR_FWD"] = "chain"
-    launches = 0
-    for mode in ("stored", "fused"):
-        os.environ["GDKVM_GDR_BWD"] = mode
-        _reset_counts()
-        metrics = train(cfg, max_steps=TRAIN_STEPS, device=device)
-        counts = _read_counts()
-        print(f"training [chain, {mode}]: counts {counts}; last metrics "
-              + " ".join(f"{k} {v:.6f}" for k, v in metrics.items()))
-        want = dict(_ZERO, chain_kernel=TRAIN_STEPS + FINAL_EVAL,
-                    residual_fwd=TRAIN_STEPS,
-                    bwd_kernel=TRAIN_STEPS if mode == "fused" else 0,
-                    stored_bwd=TRAIN_STEPS if mode == "stored" else 0)
-        if counts != want:
-            raise AssertionError(f"training counts [chain, {mode}] {counts}, expected {want}")
-        if not all(math.isfinite(v) for v in metrics.values()):
-            raise AssertionError(f"non-finite training metrics {metrics}")
-        launches += counts["chain_kernel"]
+    os.environ["GDKVM_GDR_FWD"], os.environ["GDKVM_GDR_BWD"] = "chain", "stored"
+    _reset_counts()
+    metrics = train(cfg, max_steps=TRAIN_STEPS, device=device)
+    counts = _read_counts()
+    print(f"training [chain, stored]: counts {counts}; last metrics "
+          + " ".join(f"{k} {v:.6f}" for k, v in metrics.items()))
+    want = dict(_ZERO, chain_kernel=TRAIN_STEPS + FINAL_EVAL,
+                residual_fwd=TRAIN_STEPS, stored_bwd=TRAIN_STEPS)
+    if counts != want:
+        raise AssertionError(f"training counts [chain, stored] {counts}, expected {want}")
+    if not all(math.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"non-finite training metrics {metrics}")
+    launches = counts["chain_kernel"]
 
     batch = _batch(cfg)
     mcfg = dataclasses.replace(train_model_config(cfg.model, 256),
@@ -1385,7 +1386,15 @@ def phase_chain_train(device) -> int:
             os.environ["GDKVM_GDR_FWD"], os.environ["GDKVM_GDR_BWD"] = fwd, mode
             state = _state(cfg, mcfg, device, weights)
             weights = weights or state.model.state_dict()
+            _reset_counts()
             metrics, grads = loss_and_grads(state, batch, cfg)
+            counts = _read_counts()
+            want = dict(_ZERO, residual_fwd=1,
+                        **{"chain_kernel" if fwd == "chain" else "fwd_kernel": 1,
+                           "bwd_kernel" if mode == "fused" else "stored_bwd": 1})
+            if counts != want:
+                raise AssertionError(f"one step [{fwd}, {mode}] counts {counts}, "
+                                     f"expected {want}")
             runs[fwd, mode] = (metrics["loss"].item(), global_norm(grads).item())
     os.environ.pop("GDKVM_GDR_FWD")
     os.environ.pop("GDKVM_GDR_BWD")
@@ -1409,7 +1418,7 @@ def phase_chain_times(device) -> dict:
     their profiled device time, the solve against the batched solve."""
     import torch
     from gdkvm_tpu_torch.core import gdr
-    from gdkvm_tpu_torch.ops import gdr_cuda
+    from gdkvm_tpu_torch.ops import gdr_counts, gdr_cuda
     gen = torch.Generator(device=device).manual_seed(6)
     out = {}
     for name, shape, save in (("serve", SERVE_SHAPE, False), ("train", TRAIN_SHAPE, True)):
@@ -1456,14 +1465,14 @@ def phase_chain_times(device) -> dict:
         o, s_t, states = gdr_cuda.gdr_chain_cuda(q, k, u, w, alpha, s0, save_states=save)
         mono_out = mono()
         out[name] = {
-            "kernel": dict(_bound(f"chain, {name}", k_ms, _chain_ops(*shape, exact=True),
+            "kernel": dict(_bound(f"chain, {name}", k_ms, gdr_counts.chain_ops(*shape, exact=True),
                                   _nbytes(q, k, u, w, alpha, s0, o, s_t, states)),
                            plain_ms=p_ms),
-            "fwd": _bound(f"fwd, {name}", m_ms, _fwd_ops(*shape, exact=True),
+            "fwd": _bound(f"fwd, {name}", m_ms, gdr_counts.fwd_ops(*shape, exact=True),
                           _nbytes(q, k, v, beta, alpha, s0, *mono_out)),
             "split": (s_ms, m_ms), "solve": solve_ms}
         if wy_ms is not None:
-            _bound(f"WY solve, {name}", wy_ms, _solve_ops(*shape, exact=True),
+            _bound(f"WY solve, {name}", wy_ms, gdr_counts.solve_ops(*shape, exact=True),
                    _nbytes(k, v, beta, u, w))
     return out
 
@@ -1472,7 +1481,7 @@ def phase_chain_times(device) -> dict:
 # and a checkpoint every 6, EMA on.
 RUN = dict(num_iterations=12, log_every=2, eval_every=6, checkpoint_every=6,
            ema_decay=0.99)
-RUN_CLIPS = {"packed": (64, 8), "camus": (16, 4)}      # train, val clips of 10 frames
+RUN_CLIPS = {"packed": (32, 8), "camus": (16, 4)}      # train, val clips of 10 frames
 # A resumed run against the unbroken one, max|Δ|/max|·| over each group of
 # tensors: cuDNN's and the atomics of the stored backward's batched products
 # may order sums differently from run to run.
@@ -1537,12 +1546,15 @@ def phase_train_run(device, pil: bool) -> dict:
     before and read just after; then the resume check.  Returns the
     launches."""
     import math
+    from gdkvm_tpu_torch.config.schema import load_config
     from gdkvm_tpu_torch.train.loop import train
     launches = {"fwd": 0, "residual": 0}
     rates = {}
     tmp = _scratch_dir("run")
     roots = _write_run_sets(tmp, pil)
-    runs = [("packed", "on"), ("packed", "off")] + ([("camus", "off")] if pil else [])
+    # The device cache, and the host pipeline (thread pool, pinned
+    # prefetch): on the PNG layout where PIL imports, else on the packed file.
+    runs = [("packed", "on"), ("camus", "off") if pil else ("packed", "off")]
     for kind, cache in runs:
         run_dir = os.path.join(tmp, f"run_{kind}_{cache}")
         cfg = _run_cfg(kind, roots[kind], run_dir, cache)
@@ -1585,8 +1597,8 @@ def phase_train_run(device, pil: bool) -> dict:
                  if os.path.isdir(os.path.join(run_dir, "vis")) else 0)
         if n_vis != (2 * min(cfg.eval_stage.num_vis, n_val) if pil else 0):
             raise AssertionError(f"{n_vis} overlay PNGs")
-        if not os.path.exists(os.path.join(run_dir, "config.json")):
-            raise AssertionError("no config.json")
+        if load_config(os.path.join(run_dir, "config.yaml")) != cfg:
+            raise AssertionError("config.yaml does not read back to the run's config")
         if final["eval/dice_fg_mean"] != eval_rows[-1]["eval/dice_fg_mean"]:
             raise AssertionError(f"returned {final}")
         # The second eval pass, between its step's log row and its own
@@ -1607,9 +1619,8 @@ def phase_train_run(device, pil: bool) -> dict:
               + f"; {n_vis} overlays, checkpoints {ckpts}")
         launches["fwd"] += counts["fwd_kernel"] - counts["residual_fwd"]
         launches["residual"] += counts["residual_fwd"]
-    for cache in ("on", "off"):
-        _resume_check(device, roots["packed"], tmp, cache)
-    return {"launches": launches, "rates": rates}
+    _resume_check(device, roots["packed"], tmp, "on")
+    return {"launches": launches, "rates": rates, "roots": roots}
 
 
 def _resume_check(device, data_path: str, tmp: str, cache: str) -> None:
@@ -1754,7 +1765,7 @@ STREAM_EVAL_DICE = {"float32": 1e-4, "bfloat16": 2e-2}
 
 
 def phase_stream_eval(device) -> int:
-    """``stream_evaluate`` on 8 synthetic videos of 128 frames at 112² in
+    """``stream_evaluate`` on 8 synthetic videos of 64 frames at 112² in
     16-frame chunks, the ts8_112 model: one stream and 8 in flight.
     Returns the forward launches."""
     import dataclasses
@@ -1768,10 +1779,10 @@ def phase_stream_eval(device) -> int:
         out = {}
         for streams in (1, 8):
             _reset_counts()
-            out[streams] = stream_evaluate(cfg, model, num_videos=8, video_len=128,
+            out[streams] = stream_evaluate(cfg, model, num_videos=8, video_len=64,
                                            streams=streams)
             counts = _read_counts()
-            calls = (8 // streams) * 8 + 8          # the timed pass + the untimed one
+            calls = (8 // streams) * 4 + 4          # the timed pass + the untimed one
             if counts != dict(_ZERO, fwd_kernel=calls):
                 raise AssertionError(f"stream eval [{dtype}, {streams}] counts {counts}, "
                                      f"expected {calls} residual-free launches")
@@ -1785,24 +1796,378 @@ def phase_stream_eval(device) -> int:
         worst = max(abs(out[1][k] - out[8][k]) for k in keys)
         bar = STREAM_EVAL_DICE[dtype]
         print(f"stream eval [{dtype}]: 8 streams vs 1, worst |ΔDice| {worst:.3e} (bar {bar:g})")
-        if out[1]["frames"] != out[8]["frames"] or out[1]["frames"] != 8 * 128 \
+        if out[1]["frames"] != out[8]["frames"] or out[1]["frames"] != 8 * 64 \
                 or not worst <= bar:
             raise AssertionError(f"stream eval [{dtype}]: 8 streams disagree with 1")
     return launches
+
+
+# ---------------------------------------------------------------- the CLI
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+CONFIGS = os.path.join(REPO, "configs")
+TS8_256 = os.path.join(CONFIGS, "gdkvm_ts8_256.yaml")
+TS8_112 = os.path.join(CONFIGS, "gdkvm_ts8_112.yaml")
+# Two forward routes of one model through the command line, by their Dice
+# values; their masks, compared in-process, must agree on MASK_AGREE.
+CLI_DICE = 2e-3
+MASK_AGREE = 0.999
+
+
+def _cli(argv: list, rc: int = 0) -> list:
+    """``gdkvm_tpu_torch.cli.main(argv)`` in this process, so that the
+    kernels' launch counters can be read, with stdout captured → the JSON
+    object of each line it printed.  A nonzero exit code, like any
+    exception of the command, ends the run."""
+    from gdkvm_tpu_torch.cli import main
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        got = main(list(argv))
+    dt = time.perf_counter() - t0
+    text = buf.getvalue().strip()
+    if got != rc:
+        raise AssertionError(f"cli {argv}: exit code {got}, expected {rc}; stdout {text!r}")
+    lines = [json.loads(line) for line in text.splitlines()]
+    print(f"cli [{' '.join(str(a) for a in argv if not os.path.isabs(str(a).split('=')[-1]))}]"
+          f" -> {len(lines)} line(s) in {dt:.1f} s")
+    return lines
+
+
+def _module_env() -> dict:
+    return dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+
+
+def _expect_counts(what: str, want: dict) -> dict:
+    counts = _read_counts()
+    if counts != dict(_ZERO, **want):
+        raise AssertionError(f"cli {what}: counts {counts}, expected {dict(_ZERO, **want)}")
+    _reset_counts()
+    return counts
+
+
+def _cli_info_subprocess(name: str) -> None:
+    """``python3 -m gdkvm_tpu_torch info --probe`` in a process of its own:
+    the module entry and a cold import."""
+    import torch
+    res = subprocess.run([sys.executable, "-m", "gdkvm_tpu_torch", "info", "--config",
+                          TS8_256, "--probe"], cwd=REPO, env=_module_env(),
+                         capture_output=True, text=True, timeout=300)
+    if res.returncode != 0:
+        raise AssertionError(f"python -m gdkvm_tpu_torch info: rc {res.returncode}: "
+                             f"{res.stderr[-2000:]}")
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    print(f"cli info (subprocess): {json.dumps({k: v for k, v in out.items() if k != 'config'})}")
+    if out["platform"] != "gpu" or out["devices"][0] != name \
+            or out["cuda"] != torch.version.cuda or "device_roundtrip_ms" not in out \
+            or out["config"]["model"]["enc_channels"] != [64, 64, 128, 192] \
+            or out["config"]["train"]["batch_size"] != 8:
+        raise AssertionError(f"info: {out}")
+
+
+
+def _cli_serve_subprocess(tmp: str, smi: str) -> None:
+    """``serve`` as a subprocess on port 0 (its first stdout line gives the
+    port), ``serve-bench`` against it in this process, then SIGINT, which
+    must end it with exit code 0."""
+    from gdkvm_tpu_torch.serve import ServeClient
+    err_path = os.path.join(tmp, "serve.err")
+    with open(err_path, "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "gdkvm_tpu_torch", "serve", "--config", TS8_112,
+             "--port", "0", "--streams", "8", f"runtime.run_dir={os.path.join(tmp, 'none')}"],
+            cwd=REPO, env=_module_env(), stdout=subprocess.PIPE, stderr=err, text=True)
+    watchdog = threading.Timer(300, proc.kill)     # a server that never answers
+    watchdog.start()
+    try:
+        line = proc.stdout.readline()
+        if not line:
+            raise AssertionError(f"serve printed nothing (rc {proc.wait()}): "
+                                 f"{open(err_path).read()[-2000:]}")
+        first = json.loads(line)
+        client = ServeClient(first["host"], first["port"])
+        before = client.health()
+        if before["device"] != "cuda:0" or first["streams"] != 8 or first["chunk"] != 16 \
+                or first["image_size"] != 112:
+            raise AssertionError(f"serve: {first}, /healthz {before}")
+        bench = _cli(["serve-bench", "--port", str(first["port"]), "--sessions", "8",
+                      "--frames", "256"])[-1]
+        after = client.health()
+        print(f"cli serve (subprocess, {before['device']}) + serve-bench on {smi}: "
+              f"{json.dumps(bench)}; ticks {before['ticks']} -> {after['ticks']}")
+        if bench["ok"] is not True or bench["frames_total"] != 8 * 256 \
+                or not after["ticks"] > before["ticks"]:
+            raise AssertionError(f"serve-bench: {bench}")
+        proc.send_signal(signal.SIGINT)
+        rc = proc.wait(timeout=120)
+        if rc != 0:
+            raise AssertionError(f"serve ended with rc {rc}: {open(err_path).read()[-2000:]}")
+    finally:
+        watchdog.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        proc.stdout.close()
+    if "UNTRAINED init" not in open(err_path).read():
+        raise AssertionError("serve without a checkpoint gave no warning")
+
+
+
+def phase_cli(device, info: dict, roots: dict) -> dict:
+    """The command-line main path: ``python -m gdkvm_tpu_torch <command>
+    --config configs/<file>.yaml key=value``, through ``cli.main`` in this
+    process (``info`` and ``serve`` as real subprocesses), at the full
+    width of the ts8 model, on the data ``phase_train_run`` wrote.  Every
+    command's launches are counted; nothing here catches a failure.
+    Returns the launches by kernel."""
+    import numpy as np
+    import torch
+    from gdkvm_tpu_torch import cli
+    from gdkvm_tpu_torch.config.schema import load_config
+    from gdkvm_tpu_torch.eval.infer import load_frames
+    from gdkvm_tpu_torch.eval.streaming import stream_video
+    from gdkvm_tpu_torch.ops.preproc import resize_normalize, resize_u8
+    t_phase = time.perf_counter()
+    total = dict(_ZERO)
+
+    def tally(what: str, want: dict) -> None:
+        for key, n in _expect_counts(what, want).items():
+            total[key] += n
+
+    tmp = _scratch_dir("cli")
+    name, smi = torch.cuda.get_device_name(0), info["smi"]
+
+    _cli_info_subprocess(name)
+
+    # pack the PNG layout (the run's packed split where PIL is absent).
+    _reset_counts()
+    if info["pil"]:
+        pck = os.path.join(tmp, "pck")
+        packed = _cli(["pack", "--config", TS8_256, "--out", pck,
+                       f"data_path={roots['camus']}"])[-1]
+        n_train, n_val = RUN_CLIPS["camus"]
+        if packed["train"]["clips"] != n_train or packed["val"]["clips"] != n_val:
+            raise AssertionError(f"pack: {packed}")
+    else:
+        pck, (n_train, n_val) = roots["packed"], RUN_CLIPS["packed"]
+    run_dir = os.path.join(tmp, "run")
+    base = ["--config", TS8_256, "data.dataset=packed", f"data_path={pck}",
+            "eval_stage.wandb_mode=disabled", f"runtime.run_dir={run_dir}"]
+    report = _cli(["validate-data"] + base)[-1]
+    if not report["ok"] or report["splits"]["train"]["clips"] != n_train \
+            or report["splits"]["val"]["frame_geometry"] != ["(256, 256, 1)"]:
+        raise AssertionError(f"validate-data: {report}")
+    tally("pack, validate-data", {})
+
+    # train: one forward with residuals a step, the stored backward, two
+    # eval passes of residual-free launches, no plain GDR call.
+    steps = 12
+    final = _cli(["train", "num_iterations=12", "train.eval_every=6",
+                  "train.checkpoint_every=6", "train.log_every=2"] + base)[-1]["final"]
+    tally("train", {"fwd_kernel": steps + 2 * n_val, "residual_fwd": steps,
+                    "stored_bwd": steps})
+    rows = _jsonl(run_dir)
+    sps = [r["steps_per_sec"] for r in rows if "loss" in r and r["step"] >= 4]
+    print(f"cli train on {smi}: {steps} steps of ts8_256 on {n_train} packed clips, steps/s by "
+          f"log window from step 4 " + " ".join(f"{x:.3f}" for x in sps)
+          + f" (median {statistics.median(sps):.3f}); loss {final['loss']:.4f}, eval Dice fg "
+          f"{final['eval/dice_fg_mean']:.4f}")
+    cfg = load_config(os.path.join(run_dir, "config.yaml"))
+    if cfg != load_config(TS8_256, base[2:] + ["num_iterations=12", "train.eval_every=6",
+                                               "train.checkpoint_every=6", "train.log_every=2"]) \
+            or cfg.train.num_iterations != 12 or cfg.data.data_path != pck:
+        raise AssertionError("config.yaml does not read back to the run's config")
+    if sorted(os.listdir(os.path.join(run_dir, "checkpoints"))) != \
+            ["step_00000006.pt", "step_00000012.pt"]:
+        raise AssertionError("train: checkpoints")
+
+    # The inference commands, each from the run's checkpoint: residual-free
+    # launches only.
+    scored = _cli(["eval"] + base)[-1]
+    tally("eval", {"fwd_kernel": n_val})
+    worst = max(abs(scored[k] - final["eval/" + k]) for k in scored)
+    print(f"cli eval: {json.dumps(scored)}; worst |Δ| to the run's last eval {worst:.2e}")
+    if scored["frames"] != n_val * 10 or worst > 1e-3:
+        raise AssertionError(f"eval {scored} against the run's {final}")
+
+    streamed = _cli(["stream-eval", "--streams", "8", "--video-len", "64"] + base)[-1]
+    tally("stream-eval", {"fwd_kernel": 2 * 4})       # 4 chunks, two passes
+    print(f"cli stream-eval --streams 8 on {smi}: {json.dumps(streamed)}")
+    if streamed["frames"] != 8 * 64 or streamed["streams"] != 8.0:
+        raise AssertionError(f"stream-eval: {streamed}")
+
+    if info["pil"]:
+        png = base + ["data.dataset=camus", f"data_path={roots['camus']}"]
+        for protocol, key in (("camus", "dice_mean_overall"), ("camus-ef", "ef_mae")):
+            res = _cli(["parity", "--protocol", protocol] + png)[-1]
+            tally(f"parity {protocol}", {"fwd_kernel": 1})     # 4 clips: one padded batch
+            print(f"cli parity --protocol {protocol}: {res['n_patients']} patients, "
+                  f"{key} {res[key]:.4f}" + (f", HD95 in {res['hd95_units']}"
+                                             if protocol == "camus" else ""))
+            if res["n_patients"] != RUN_CLIPS["camus"][1] // 2 or not np.isfinite(res[key]):
+                raise AssertionError(f"parity {protocol}: {res}")
+    abl = _cli(["parity", "--ablate", "--ablate-videos", "1", "--ablate-video-len", "8"]
+               + base)[-1]
+    tally("parity --ablate", {"fwd_kernel": 8 * (8 + 8)})   # per frame, + untimed passes
+    print("cli parity --ablate: memory deltas " + " ".join(
+        f"{k[13:]} {v:+.4f}" for k, v in abl.items() if k.startswith("memory_delta")))
+    if len(abl["conditions"]) != 8:
+        raise AssertionError(f"ablation: {abl}")
+
+    # infer: 40 frames at 300 x 280, resized on the device, chunks of 16.
+    rng = np.random.default_rng(11)
+    clip = rng.integers(0, 256, (40, 300, 280), np.uint8)
+    if info["pil"]:
+        from PIL import Image
+        source = os.path.join(tmp, "frames")
+        os.makedirs(source)
+        for i, frame in enumerate(clip):
+            Image.fromarray(frame).save(os.path.join(source, f"frame_{i:03d}.png"))
+    else:
+        from gdkvm_tpu_torch.data.camus_raw import write_mhd
+        source = os.path.join(tmp, "frames.mhd")
+        write_mhd(source, clip)
+    out_dir = os.path.join(tmp, "infer")
+    summary = _cli(["infer", "--input", source, "--out", out_dir, "--device-resize"]
+                   + (["--overlay-every", "8"] if info["pil"] else []) + base)[-1]
+    tally("infer", {"fwd_kernel": 3})
+    masks = np.load(os.path.join(out_dir, "masks.npz"))["masks"]
+    n_png = len(os.listdir(os.path.join(out_dir, "overlays"))) if info["pil"] else 0
+    if masks.shape != (40, 256, 256) or masks.dtype != np.uint8 or summary["frames"] != 40 \
+            or summary["overlays"] != n_png or (info["pil"] and n_png != 5):
+        raise AssertionError(f"infer: {summary}, masks {masks.shape}")
+    model, step = cli._load_model(load_config(TS8_256, base[2:]), None, device, "checking")
+    frames = torch.from_numpy(clip[..., None]).to(device)
+    with torch.inference_mode():
+        state, want = None, []
+        for lo in range(0, 48, 16):
+            part = frames[lo:lo + 16]
+            part = torch.cat([part, part.new_zeros((16 - len(part),) + part.shape[1:])])
+            logits, state = model(resize_normalize(part[None], (256, 256)), state)
+            want.append(logits[0].argmax(-1))
+        want = torch.cat(want)[:40].cpu().numpy()
+        rounded = stream_video(model, resize_u8(frames, (256, 256)).cpu().numpy(), chunk=16)
+    agree, agree_u8 = float((masks == want).mean()), float((masks == rounded).mean())
+    # The same file resized on the host: stream_video's own input.
+    _reset_counts()
+    _cli(["infer", "--input", source, "--out", out_dir + "_host"] + base)
+    tally("infer, host resize", {"fwd_kernel": 3})
+    host = np.load(os.path.join(out_dir + "_host", "masks.npz"))["masks"]
+    agree_host = float((host == stream_video(model, load_frames(source, 256), chunk=16)).mean())
+    print(f"cli infer (checkpoint step {step}): device-resized masks against the restored "
+          f"model in this process {agree:.6f} (bar {MASK_AGREE}; against stream_video on "
+          f"frames rounded to uint8 after the resize {agree_u8:.6f}, no bar: another "
+          f"input); host-resized masks against stream_video {agree_host:.6f} (bar {MASK_AGREE})")
+    if agree < MASK_AGREE or agree_host < MASK_AGREE:
+        raise AssertionError("infer's masks differ from the restored model's")
+    _reset_counts()
+
+    _cli_serve_subprocess(tmp, smi)
+    tally("serve-bench (the server is another process)", {})
+
+    # bench, at ts8 width.
+    shapes = {"stream": ["--chunk", "32", "--batch", "8"], "latency": [],
+              "train": ["--image-size", "256"], "modules": []}
+    for mode, extra in shapes.items():
+        res = _cli(["bench", "--mode", mode, "--config", TS8_256] + extra)[-1]
+        print(f"cli bench --mode {mode} {' '.join(extra)} on {smi}: {json.dumps(res)}")
+    grad = _cli(["bench", "--mode", "modules", "--grad", "--config", TS8_256,
+                 "--image-size", "256", "--chunk", "10", "--batch", "8"])[-1]
+    print(f"cli bench --mode modules --grad on {smi}: {json.dumps(grad)}")
+    if grad["_meta"]["clock"] != "cuda_events" or grad["_meta"]["device"] != name \
+            or not grad["lkva_gdr"]["flops_per_call"] > 0:
+        raise AssertionError(f"modules --grad: {grad}")
+    counts = _read_counts()
+    if counts["plain_fwd"] or counts["plain_chain"] or counts["plain_bwd"] \
+            or not (counts["fwd_kernel"] > counts["residual_fwd"] > 0) \
+            or counts["stored_bwd"] != counts["residual_fwd"]:
+        raise AssertionError(f"bench counts {counts}")
+    for key, n in counts.items():
+        total[key] += n
+    # The same step through the backward kernel, and a stream through the
+    # chain split: the two opt-in kernels from the command line.
+    _reset_counts()
+    os.environ["GDKVM_GDR_BWD"] = "fused"
+    res = _cli(["bench", "--mode", "train", "--config", TS8_256, "--image-size", "256"])[-1]
+    os.environ.pop("GDKVM_GDR_BWD")
+    print(f"cli bench --mode train [GDKVM_GDR_BWD=fused] on {smi}: {json.dumps(res)}")
+    tally("bench train, fused", {"fwd_kernel": 12, "residual_fwd": 12, "bwd_kernel": 12})
+    os.environ["GDKVM_GDR_FWD"] = "chain"
+    res = _cli(["bench", "--mode", "stream", "--config", TS8_256, "--chunk", "32",
+                "--batch", "8"])[-1]
+    os.environ.pop("GDKVM_GDR_FWD")
+    print(f"cli bench --mode stream [GDKVM_GDR_FWD=chain] on {smi}: {json.dumps(res)}")
+    tally("bench stream, chain", {"chain_kernel": 24})
+
+    # sweep: two learning rates x 3 steps; no combo may carry an error.
+    lines = _cli(["sweep", "learning_rate=1e-4,3e-4", "num_iterations=3", "train.eval_every=3",
+                  "train.log_every=1", "train.checkpoint_every=100"] + base[:-1]
+                 + [f"runtime.run_dir={os.path.join(tmp, 'sweep')}"])
+    tally("sweep", {"fwd_kernel": 2 * (3 + n_val), "residual_fwd": 6, "stored_bwd": 6})
+    if len(lines) != 3 or any("error" in r for r in lines[:2]) or lines[2]["runs"] != 2 \
+            or lines[2]["sweep_best"] is None:
+        raise AssertionError(f"sweep: {lines}")
+    print(f"cli sweep: best {lines[2]['sweep_best']['overrides']} by {lines[2]['metric']}")
+    law = _cli(["scale", "-N", "3e6", "-D", "2e9"])[-1]
+    if not (0 < law["learning_rate"] < 1 and law["batch_size_tokens"] > 1):
+        raise AssertionError(f"scale: {law}")
+
+    # The two other documented models, their kernels' first run through a
+    # model: H=2, d=48 at N=49, and H=6 at N=256; seeded init, fp32 compute,
+    # the kernel route held to the plain chunked route.
+    for label, path, image in (("rt_112 (H=2, d=48)", "gdkvm_rt_112.yaml", 112),
+                               ("base_256 (H=6, N=256)", "gdkvm_base_256.yaml", 256)):
+        argv = ["stream-eval", "--config", os.path.join(CONFIGS, path),
+                "data.dataset=synthetic", "--num-videos", "2", "--video-len", "32",
+                "model.compute_dtype=float32",
+                f"runtime.run_dir={os.path.join(tmp, 'none')}"]
+        kern = _cli(argv)[-1]
+        tally(f"stream-eval {label}", {"fwd_kernel": 2 * 2 + 2})   # 2 videos + the untimed one
+        plain = _cli(argv + ["model.gdr_impl=chunked"])[-1]
+        _expect_counts(f"stream-eval {label}, chunked", {"plain_fwd": 6})
+        worst = max(abs(kern[k] - plain[k]) for k in kern if k.startswith("dice"))
+        mcfg = load_config(argv[2], argv[3:4] + argv[8:]).model
+        video = torch.randint(0, 256, (32, image, image, 1), dtype=torch.uint8,
+                              generator=torch.Generator().manual_seed(7)).numpy()
+        masks = {}
+        for impl in ("auto", "chunked"):
+            m, _ = cli._load_model(load_config(argv[2], argv[3:4] + argv[8:]
+                                               + [f"model.gdr_impl={impl}"]),
+                                   None, device, "checking")
+            masks[impl] = stream_video(m, video, chunk=16)
+        agree = float((masks["auto"] == masks["chunked"]).mean())
+        _reset_counts()
+        print(f"cli stream-eval {label} on {smi}: kernel {json.dumps(kern)}; against "
+              f"gdr_impl=chunked worst |ΔDice| {worst:.2e} (bar {CLI_DICE:g}), masks of a "
+              f"32-frame video agree on {agree:.6f} (bar {MASK_AGREE}); heads "
+              f"{mcfg.num_heads}, d_k {mcfg.head_dim_k}")
+        if worst > CLI_DICE or agree < MASK_AGREE or kern["frames"] != 64:
+            raise AssertionError(f"{label}: the kernel route disagrees with the chunked one")
+
+    print(f"cli main path: counts {total}; {time.perf_counter() - t_phase:.1f} s in all")
+    if not (total["fwd_kernel"] > total["residual_fwd"] > 0 and total["bwd_kernel"] > 0
+            and total["chain_kernel"] > 0) or total["plain_fwd"] or total["plain_bwd"]:
+        raise AssertionError(f"cli path counts {total}")
+    return {"fwd": total["fwd_kernel"] - total["residual_fwd"],
+            "residual": total["residual_fwd"], "bwd": total["bwd_kernel"],
+            "chain": total["chain_kernel"]}
 
 
 def _profiled_ms(fn, iters: int = 20, match: str | None = None) -> float | None:
     """Mean device time of a call of ``fn()`` (ms) as torch.profiler traces
     it over ``iters`` calls after 3: the kernels whose name holds ``match``
     (every kernel without one), summed and divided by ``iters``; None where
-    it traces no device time."""
+    it traces no device time.  The device's activity alone is traced: with
+    the host's traced too, a ``record_function`` range (the optimizer's
+    step) comes back as a device span over kernels already counted.  The
+    sum holds the copies to and from the device beside the kernels."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
@@ -1820,53 +2185,67 @@ def main() -> int:
     device = torch.device("cuda:0")
     os.environ.pop("GDKVM_GDR_BWD", None)
     os.environ.pop("GDKVM_GDR_FWD", None)
-    phase_build()
-    err_fwd = phase_kernel_vs_plain(device)
-    err_res, err_bwd = phase_residuals_and_bwd(device)
-    phase_fused_vs_stored(device)
-    err_bwd = max(err_bwd, phase_bwd_phases_vs_plain(device))
-    phase_bf16_residuals(device)
-    err_chain = phase_chain_vs_plain(device)
-    err_fwd = max(err_fwd, phase_solve_vs_plain(device))
-    stream = phase_model(device)
-    serve = phase_serve(device)
-    train_launches = phase_train(device)
-    chain_train_launches = phase_chain_train(device)
-    phase_train_grads(device)
-    run = phase_train_run(device, info["pil"])
-    gdn2 = phase_gdn2(device)
-    stream_eval_launches = phase_stream_eval(device)
-    fixed = phase_train_times(device)
+    t_start = time.perf_counter()
+
+    def timed(phase, *args):
+        """Run a phase and print the seconds it took and the run's so far."""
+        t0 = time.perf_counter()
+        out = phase(*args)
+        now = time.perf_counter()
+        print(f"{phase.__name__}: {now - t0:.1f} s ({now - t_start:.1f} s so far)")
+        return out
+
+    timed(phase_build)
+    err_fwd = timed(phase_kernel_vs_plain, device)
+    err_res, err_bwd = timed(phase_residuals_and_bwd, device)
+    timed(phase_fused_vs_stored, device)
+    err_bwd = max(err_bwd, timed(phase_bwd_phases_vs_plain, device))
+    timed(phase_bf16_residuals, device)
+    err_chain = timed(phase_chain_vs_plain, device)
+    err_fwd = max(err_fwd, timed(phase_solve_vs_plain, device))
+    stream = timed(phase_model, device)
+    serve = timed(phase_serve, device)
+    train_launches = timed(phase_train, device)
+    chain_train_launches = timed(phase_chain_train, device)
+    timed(phase_train_grads, device)
+    run = timed(phase_train_run, device, info["pil"])
+    gdn2 = timed(phase_gdn2, device)
+    stream_eval_launches = timed(phase_stream_eval, device)
+    cli_launches = timed(phase_cli, device, info, run["roots"])
+    fixed = timed(phase_train_times, device)
     print("training steps/s: " + ", ".join(
         f"{kind} device_cache={cache} {r:.3f}" for (kind, cache), r in run["rates"].items())
         + " (train(cfg), data path inside); fixed batch "
         + ", ".join(f"{m} {statistics.mean(fixed[m]):.3f}" for m in ("stored", "fused")))
-    phase_serve_times(device, serve["model"])
-    fwd_times = phase_gdr_times(device)
-    times = phase_train_kernel_times(device)
-    chain_times = phase_chain_times(device)
+    timed(phase_serve_times, device, serve["model"])
+    fwd_times = timed(phase_gdr_times, device)
+    times = timed(phase_train_kernel_times, device)
+    chain_times = timed(phase_chain_times, device)
     src = "gdkvm_tpu_torch/csrc/"
     # No one PyTorch call computes a GDR scan: no library yardstick.
     print(json.dumps({"kernels": [
         {"name": "gdr_fwd", "route": "cuda", "source": src + "gdr_fwd.cu",
          "replaces": "gdkvm_tpu/ops/gdr_pallas.py:513",
          "launches": stream["launches"] + train_launches["fwd"]
-         + run["launches"]["fwd"] + gdn2["fwd"] + stream_eval_launches,
+         + run["launches"]["fwd"] + gdn2["fwd"] + stream_eval_launches
+         + cli_launches["fwd"],
          "max_abs_err": err_fwd,
          **fwd_times, "library_ms": None},
         {"name": "gdr_fwd_residuals", "route": "cuda", "source": src + "gdr_fwd.cu",
          "replaces": "gdkvm_tpu/ops/gdr_pallas.py:513",
          "launches": train_launches["residual"] + run["launches"]["residual"]
-         + gdn2["residual"], "max_abs_err": err_res,
+         + gdn2["residual"] + cli_launches["residual"], "max_abs_err": err_res,
          **times["fwd"], "library_ms": None},
         {"name": "gdr_bwd", "route": "cuda", "source": src + "gdr_bwd.cu",
          "replaces": "gdkvm_tpu/ops/gdr_pallas.py:724",
-         "launches": train_launches["bwd"] + gdn2["bwd"], "max_abs_err": err_bwd,
+         "launches": train_launches["bwd"] + gdn2["bwd"] + cli_launches["bwd"],
+         "max_abs_err": err_bwd,
          **{k: v for k, v in times["bwd"].items() if k != "stored_ms"},
          "library_ms": None},
         {"name": "gdr_chain", "route": "cuda", "source": src + "gdr_chain.cuh",
          "replaces": "gdkvm_tpu/ops/gdr_pallas.py:585",
-         "launches": serve["chain_launches"] + chain_train_launches,
+         "launches": serve["chain_launches"] + chain_train_launches
+         + cli_launches["chain"],
          "max_abs_err": err_chain, **chain_times["serve"]["kernel"],
          "library_ms": None},
     ]}))

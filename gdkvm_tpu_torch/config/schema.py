@@ -3,21 +3,26 @@
 ``ModelConfig`` has the same fields and defaults as
 ``gdkvm_tpu.config.schema.ModelConfig`` (a test holds the two equal); this
 copy exists because the port must import without JAX or yaml.
-``DataConfig``, ``TrainConfig``, ``EvalStageConfig`` and ``RuntimeConfig``
-carry the fields of the JAX package's that the port's training run reads,
-with the same names and defaults (a test holds every shared default);
-``Config`` holds the five.  The card host has no yaml, so the documented
-configs the port runs are functions, :func:`ts8_256` (training) and
-:func:`ts8_112` (serving), each held to its YAML file by a test, and a run
-writes its config as JSON (:func:`save_config_json`).
+``DataConfig``, ``TrainConfig``, ``EvalStageConfig``, ``ParallelConfig`` and
+``RuntimeConfig`` carry the JAX package's fields with the same names and
+defaults (a test holds every shared default); ``Config`` holds the six and
+the documented top-level aliases ``data_path``, ``batch_size``,
+``learning_rate`` and ``num_iterations``.
+
+:func:`load_config` reads a YAML file (through ``config/yaml_subset.py``:
+PyYAML is not required) and applies ``a.b.c=value`` overrides;
+:func:`save_config` writes one back.  :func:`ts8_256` (training) and
+:func:`ts8_112` (serving) build the two documented ts8 configs without a
+file, each held to its YAML file by a test.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import json
 from dataclasses import dataclass, field
-from typing import Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
+
+from gdkvm_tpu_torch.config import yaml_subset
 
 
 @dataclass
@@ -94,6 +99,9 @@ class TrainConfig:
     eval_every: int = 500
     checkpoint_every: int = 500
     prompt_prob: float = 0.5           # first-frame mask prompting
+    # Recompute the model's forward in the backward instead of keeping its
+    # activations (torch.utils.checkpoint around the forward).
+    remat: bool = False
     ema_decay: float = 0.0             # Polyak/EMA of params; 0 disables
     accum_steps: int = 1               # micro-steps averaged per update
 
@@ -112,9 +120,20 @@ class EvalStageConfig:
 
 
 @dataclass
+class ParallelConfig:
+    """Device layout.  The port runs on one device: anything else raises in
+    ``train`` until distribution is ported."""
+    data_axis: int = -1                # -1 = all remaining devices
+    model_axis: int = 1
+    donate_state: bool = True          # unused here: no buffer donation in PyTorch
+
+
+@dataclass
 class RuntimeConfig:
     run_dir: str = "outputs/run"       # metrics, checkpoints, vis, trace
     resume: bool = False               # continue from the latest checkpoint
+    # Unused: kept so that a config.yaml written by a JAX run loads.
+    jit_cache_dir: str = ""
     profile: bool = False              # write a torch.profiler trace to run_dir/trace
     # Raise at the first backward op that produces a NaN
     # (torch.autograd.set_detect_anomaly); slower, for debugging.
@@ -127,14 +146,130 @@ class Config:
     data: DataConfig = field(default_factory=DataConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     eval_stage: EvalStageConfig = field(default_factory=EvalStageConfig)
+    parallel: ParallelConfig = field(default_factory=ParallelConfig)
     runtime: RuntimeConfig = field(default_factory=RuntimeConfig)
 
+    # The documented top-level keys of the reference recipes.  When set (in
+    # YAML or by an override) they replace the nested fields in
+    # __post_init__, which apply_overrides runs again: an alias that is set
+    # wins over a nested override of the same field.
+    data_path: Optional[str] = None
+    batch_size: Optional[int] = None
+    learning_rate: Optional[float] = None
+    num_iterations: Optional[int] = None
 
-def save_config_json(cfg: Config, path: str) -> None:
-    """Write ``cfg`` as JSON (``dataclasses.asdict``; tuples become lists)."""
+    def __post_init__(self):
+        if self.data_path is not None:
+            self.data.data_path = self.data_path
+        if self.batch_size is not None:
+            self.train.batch_size = self.batch_size
+        if self.learning_rate is not None:
+            self.train.learning_rate = self.learning_rate
+        if self.num_iterations is not None:
+            self.train.num_iterations = self.num_iterations
+
+
+def _from_dict(cls, d: Dict[str, Any]):
+    """Build a dataclass from a (possibly nested) dict; an unknown key raises
+    KeyError naming the valid ones, lists become tuples."""
+    if d is None:
+        return cls()
+    fields = {f.name: f for f in dataclasses.fields(cls)}
+    kwargs = {}
+    for key, value in d.items():
+        if key not in fields:
+            raise KeyError(f"Unknown config key {key!r} for {cls.__name__}; "
+                           f"valid keys: {sorted(fields)}")
+        f = fields[key]
+        if dataclasses.is_dataclass(f.type):
+            kwargs[key] = _from_dict(f.type, value)
+        elif isinstance(value, dict):
+            # a nested dataclass, declared by a string annotation
+            kwargs[key] = _from_dict(_resolve_dataclass(f), value)
+        elif isinstance(value, list):
+            kwargs[key] = tuple(value)
+        else:
+            kwargs[key] = value
+    return cls(**kwargs)
+
+
+def _resolve_dataclass(f: dataclasses.Field):
+    t = f.type
+    if isinstance(t, str):
+        t = globals().get(t, None)
+    if t is None or not dataclasses.is_dataclass(t):
+        raise TypeError(f"Field {f.name} is not a dataclass")
+    return t
+
+
+def _coerce(value: str, current: Any) -> Any:
+    """Coerce an override's string to the type of the current value."""
+    if isinstance(current, bool) or value in ("true", "false", "True", "False"):
+        return value in ("true", "True", "1")
+    if isinstance(current, int) and not isinstance(current, bool):
+        try:
+            return int(value)
+        except ValueError:
+            return float(value)
+    if isinstance(current, float):
+        return float(value)
+    if isinstance(current, (tuple, list)):
+        items = [x for x in value.strip("[]()").split(",") if x]
+        elem = current[0] if len(current) else 0
+        return tuple(_coerce(x.strip(), elem) for x in items)
+    if current is None:
+        # best-effort literal parse
+        for cast in (int, float):
+            try:
+                return cast(value)
+            except ValueError:
+                pass
+        return value
+    return value
+
+
+def apply_overrides(cfg: Config, overrides: Sequence[str]) -> Config:
+    """Apply ``a.b.c=value`` dotted-path overrides in place, then run the
+    alias propagation again."""
+    for item in overrides:
+        if "=" not in item:
+            raise ValueError(f"Override {item!r} must be key=value")
+        path, value = item.split("=", 1)
+        parts = path.split(".")
+        obj = cfg
+        for p in parts[:-1]:
+            if not hasattr(obj, p):
+                raise KeyError(f"Unknown config path {path!r} (at {p!r})")
+            obj = getattr(obj, p)
+        leaf = parts[-1]
+        if not hasattr(obj, leaf):
+            raise KeyError(f"Unknown config path {path!r} (at {leaf!r})")
+        setattr(obj, leaf, _coerce(value, getattr(obj, leaf)))
+    if isinstance(cfg, Config):
+        cfg.__post_init__()
+    return cfg
+
+
+def load_config(path: Optional[str] = None,
+                overrides: Sequence[str] = ()) -> Config:
+    """Load a YAML config file (or the defaults) and apply overrides."""
+    if path:
+        with open(path) as fh:
+            raw = yaml_subset.load(fh.read()) or {}
+        cfg = _from_dict(Config, raw)
+    else:
+        cfg = Config()
+    return apply_overrides(cfg, overrides)
+
+
+def to_dict(cfg) -> Dict[str, Any]:
+    return dataclasses.asdict(cfg)
+
+
+def save_config(cfg: Config, path: str) -> None:
+    """Write ``cfg`` as YAML that :func:`load_config` (and PyYAML) reads."""
     with open(path, "w") as fh:
-        json.dump(dataclasses.asdict(cfg), fh, indent=2, sort_keys=True)
-        fh.write("\n")
+        fh.write(yaml_subset.dump(to_dict(cfg)))
 
 
 def _ts8_model() -> ModelConfig:

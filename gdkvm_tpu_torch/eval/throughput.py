@@ -2,6 +2,10 @@
 gdkvm_tpu/eval/throughput.py): streaming frames/s, per-call serving
 latency, and seconds a training step.
 
+Each function measures on the ``device`` it is given and names it in its
+result (``"device"``: the card's name, or ``"cpu"``: a host number, never
+the card's).  None has a default device: the caller says where.
+
 Each chunk's step returns a 4-byte checksum of its masks.  A timer ends on
 ``.item()`` of a checksum (or of the loss): work on one CUDA stream runs in
 order, so that one fetch waits for everything queued before it.
@@ -19,6 +23,10 @@ from gdkvm_tpu_torch.eval.metrics import mask_from_logits
 from gdkvm_tpu_torch.models.gdkvm import GDKVM, StreamState
 
 Tensor = torch.Tensor
+
+
+def _device_name(device: torch.device) -> str:
+    return torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
 
 
 def streaming_step(model: GDKVM, frames_u8: Tensor,
@@ -39,11 +47,8 @@ def measure_streaming_fps(model: GDKVM, device: torch.device, *,
     """Frames/s of chunked streaming inference with the state carried.
 
     ``batch`` streams run as one batch; frames/s counts all of them.  The
-    model runs ``1 + warmup_chunks + timed_chunks`` chunks.  Raises unless
-    ``device`` is a CUDA device: frames/s is a device measurement.
+    model runs ``1 + warmup_chunks + timed_chunks`` chunks.
     """
-    if device.type != "cuda":
-        raise ValueError(f"measure_streaming_fps times a CUDA device, got {device}")
     rng = np.random.default_rng(seed)
     frames = torch.from_numpy(rng.integers(
         0, 255, (batch, chunk, image_size, image_size, 1), np.uint8)).to(device)
@@ -69,7 +74,7 @@ def measure_streaming_fps(model: GDKVM, device: torch.device, *,
         "image_size": image_size,
         "timed_frames": total,
         "elapsed_sec": dt,
-        "device": torch.cuda.get_device_name(device),
+        "device": _device_name(device),
     }
 
 
@@ -83,9 +88,7 @@ def measure_streaming_latency(model: GDKVM, device: torch.device, *,
     from host memory to the device, through the model, and its checksum
     comes back, synchronously: what a live scanner feed waits for.
     ``chunk=1`` gives per-frame latency.  Percentiles over ``timed`` calls
-    after ``warmup``.  Raises unless ``device`` is a CUDA device."""
-    if device.type != "cuda":
-        raise ValueError(f"measure_streaming_latency times a CUDA device, got {device}")
+    after ``warmup``."""
     rng = np.random.default_rng(seed)
     host = torch.from_numpy(rng.integers(
         0, 255, (batch, chunk, image_size, image_size, 1), np.uint8))
@@ -110,26 +113,28 @@ def measure_streaming_latency(model: GDKVM, device: torch.device, *,
         "latency_ms_p99": float(np.percentile(lats_ms, 99)),
         "latency_ms_mean": float(lats_ms.mean()),
         "latency_ms_per_frame_p50": float(np.percentile(lats_ms, 50) / chunk),
+        "device": _device_name(device),
     }
 
 
 def measure_train_step_time(step: Callable[[], Dict[str, Tensor]],
+                            device: torch.device,
                             warmup: int = 2, timed: int = 10
                             ) -> Dict[str, float]:
     """Seconds a training step: ``step()`` runs one step on its own state
-    and batch (e.g. ``lambda: train_step(state, batch, cfg)``) and returns
-    its metrics.  The clock stops after a fetch of the last step's loss and
-    ``torch.cuda.synchronize()``.  Raises without a CUDA device."""
-    if not torch.cuda.is_available():
-        raise ValueError("measure_train_step_time times a CUDA device")
+    and batch on ``device`` (e.g. ``lambda: train_step(state, batch, cfg)``)
+    and returns its metrics.  The clock stops after a fetch of the last
+    step's loss and, on a CUDA device, ``torch.cuda.synchronize``."""
+    sync = ((lambda: torch.cuda.synchronize(device)) if device.type == "cuda"
+            else (lambda: None))
     for _ in range(warmup):
         metrics = step()
     metrics["loss"].item()
-    torch.cuda.synchronize()
+    sync()
     t0 = time.perf_counter()
     for _ in range(timed):
         metrics = step()
     metrics["loss"].item()
-    torch.cuda.synchronize()
+    sync()
     dt = (time.perf_counter() - t0) / timed
     return {"sec_per_step": dt, "steps_per_sec": 1.0 / dt}

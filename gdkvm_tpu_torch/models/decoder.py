@@ -23,7 +23,10 @@ Tensor = torch.Tensor
 @functools.lru_cache(maxsize=64)
 def _resize_tensor(src: int, dst: int, device: torch.device,
                    dtype: torch.dtype) -> Tensor:
-    return torch.tensor(resize_matrix(src, dst), device=device).to(dtype)
+    # Made outside inference mode: an entry first asked for there would be
+    # an inference tensor, which a later training step could not save.
+    with torch.inference_mode(False):
+        return torch.tensor(resize_matrix(src, dst), device=device).to(dtype)
 
 
 def resize_bilinear(x: Tensor, hw: Tuple[int, int]) -> Tensor:

@@ -569,14 +569,18 @@ class GDRFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do, ds_t):
         do, ds_t = do.contiguous(), ds_t.contiguous()
+        # Read once: under torch.utils.checkpoint (train.remat) a second
+        # read of saved_tensors would ask for a second recomputation, which
+        # it refuses.
+        saved = ctx.saved_tensors
         if ctx.mode == "recompute":
             with torch.enable_grad():
-                ins = [x.detach().requires_grad_(True) for x in ctx.saved_tensors]
+                ins = [x.detach().requires_grad_(True) for x in saved]
                 out = gdr.gdr_chunked(*ins)
                 dq, dk, dv, dbeta, dalpha, ds0, deta = torch.autograd.grad(
                     out, ins, (do, ds_t))
         else:
-            q, k, v, beta, alpha, eta, states, *uw = ctx.saved_tensors
+            q, k, v, beta, alpha, eta, states, *uw = saved
             if ctx.mode == "stored":
                 grads = gdr.gdr_bwd_stored(q, k, v, beta, eta, alpha, states,
                                            *uw, do, ds_t)
@@ -585,7 +589,7 @@ class GDRFunction(torch.autograd.Function):
             dq, dk, dv, dbeta, deta, dalpha, ds0 = grads
         if ctx.coupled:
             dbeta, deta = dbeta + deta, None
-        q, k, v, beta, alpha = ctx.saved_tensors[:5]
+        q, k, v, beta, alpha = saved[:5]
         cast = lambda g, x: g.to(x.dtype)
         return (cast(dq, q), cast(dk, k), cast(dv, v), cast(dbeta, beta),
                 cast(dalpha, alpha), ds0, deta)

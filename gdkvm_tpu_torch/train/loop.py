@@ -24,8 +24,9 @@ from dataclasses import dataclass
 from typing import Callable, Dict, Iterator, List, Optional, Tuple, Union
 
 import torch
+import torch.utils.checkpoint
 
-from gdkvm_tpu_torch.config.schema import Config, save_config_json
+from gdkvm_tpu_torch.config.schema import Config, save_config
 from gdkvm_tpu_torch.data import device_cache as dc
 from gdkvm_tpu_torch.data.pipeline import (Batch, batch_iterator, make_dataset,
                                            prefetch_to_device)
@@ -226,7 +227,14 @@ def loss_and_grads(state: TrainState, batch: Union[Batch, CacheSampler],
     {loss, ce, dice_loss, batch_checksum} as 0-dim device tensors, a
     gradient per param).  ``batch`` is a Batch, or a :class:`CacheSampler`
     that draws this step's batch on the device.  Draws the step's prompt
-    bits from ``state.gen``."""
+    bits from ``state.gen``.
+
+    Under ``train.remat`` the model's forward runs a second time inside the
+    backward, through the GDR's autograd Function too: the forward's
+    counters (``LAUNCHES`` and ``RESIDUAL_LAUNCHES`` or ``CHAIN_LAUNCHES``
+    on the card, ``CHUNKED_CALLS`` on the CPU) then read two a step, the
+    backward's one; the loss and the gradients are those of the plain
+    step."""
     t = cfg.train
     params = state.opt.params
     dev = params[0].device
@@ -244,7 +252,13 @@ def loss_and_grads(state: TrainState, batch: Union[Batch, CacheSampler],
     bweight = 1.0 if t.bootstrap_ratio >= 1.0 else losses.bootstrap_schedule(
         state.step, t.num_iterations, t.bootstrap_start, t.bootstrap_end)
 
-    logits, _ = state.model(frames, None, masks[:, 0], prompt_w)
+    if t.remat:
+        # Keep no activation of the model: the backward runs the forward
+        # again (JAX: jax.checkpoint around the forward).
+        logits, _ = torch.utils.checkpoint.checkpoint(
+            state.model, frames, None, masks[:, 0], prompt_w, use_reentrant=False)
+    else:
+        logits, _ = state.model(frames, None, masks[:, 0], prompt_w)
     loss, aux = losses.segmentation_loss(
         logits, masks, valid, ce_weight=t.ce_weight, dice_weight=t.dice_weight,
         bootstrap_ratio=t.bootstrap_ratio, bootstrap_weight=bweight)
@@ -282,7 +296,7 @@ def train(cfg: Config, max_steps: Optional[int] = None,
     caller asks for the CPU; raises when ``device`` is CUDA and there is no
     card: it never falls back.
 
-    Under ``cfg.runtime.run_dir`` it writes ``config.json``, the metrics
+    Under ``cfg.runtime.run_dir`` it writes ``config.yaml``, the metrics
     log ``metrics.jsonl`` (every ``log_every`` steps, with steps/s and
     frames/s of the window), ``checkpoints/`` (every ``checkpoint_every``
     steps and at the end), the eval stage's overlays ``vis/`` (every
@@ -298,9 +312,14 @@ def train(cfg: Config, max_steps: Optional[int] = None,
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("train: no CUDA device; pass device='cpu' to train "
                            "on the CPU")
+    if cfg.parallel.model_axis != 1 or cfg.parallel.data_axis > 1:
+        raise NotImplementedError(
+            f"parallel.data_axis={cfg.parallel.data_axis}, model_axis="
+            f"{cfg.parallel.model_axis}: training on more than one device is "
+            f"not ported (ROADMAP Queue 1, item 7: distribution)")
     run_dir = cfg.runtime.run_dir
     os.makedirs(run_dir, exist_ok=True)
-    save_config_json(cfg, os.path.join(run_dir, "config.json"))
+    save_config(cfg, os.path.join(run_dir, "config.yaml"))
     logger = MetricsLogger(run_dir, wandb_mode=cfg.eval_stage.wandb_mode)
 
     model = GDKVM(train_model_config(cfg.model, cfg.data.image_size),

@@ -14,7 +14,8 @@ import torch
 
 from gdkvm_tpu.io import metrics_log as jmetrics_log
 from gdkvm_tpu_torch.config.schema import (Config, DataConfig, EvalStageConfig,
-                                           ModelConfig, RuntimeConfig, TrainConfig)
+                                           ModelConfig, RuntimeConfig, TrainConfig,
+                                           load_config)
 from gdkvm_tpu_torch.data import camus, packed, pipeline
 from gdkvm_tpu_torch.data.synthetic import SyntheticDataset
 from gdkvm_tpu_torch.io.checkpoint import CheckpointManager, state_tree
@@ -258,7 +259,7 @@ def test_run_writes_its_records_and_resumes_bitwise(tmp_path, data_roots, datase
     """train(cfg, device="cpu") on a materialized CAMUS layout (thread pool
     and prefetch) and on a packed set (device cache, and the gather path):
     the JSONL has every logged step with finite loss, rates and the eval
-    stage's Dice; checkpoints, overlays and config.json exist; and a run
+    stage's Dice; checkpoints, overlays and config.yaml exist; and a run
     stopped at 4 and resumed to 8 logs the unbroken run's losses and batch
     checksums and ends in its state, bit for bit."""
     def cfg_for(name, **runtime):
@@ -284,8 +285,8 @@ def test_run_writes_its_records_and_resumes_bitwise(tmp_path, data_roots, datase
     assert sorted(os.listdir(os.path.join(run, "checkpoints"))) == \
         ["step_00000004.pt", "step_00000008.pt"]
     assert len(os.listdir(os.path.join(run, "vis"))) == 4          # 2 a pass
-    saved = json.load(open(os.path.join(run, "config.json")))
-    assert saved["data"]["dataset"] == dataset and saved["model"]["enc_channels"] == [8, 8, 16, 16]
+    saved = load_config(os.path.join(run, "config.yaml"))
+    assert saved.data.dataset == dataset and saved.model.enc_channels == (8, 8, 16, 16)
 
     train(cfg_for("b"), max_steps=4, device="cpu")
     assert train(cfg_for("b", resume=True), device="cpu").keys() == final.keys()

@@ -148,7 +148,9 @@ def test_port_imports_without_jax():
     for name in ("train.loop", "eval.evaluator", "eval.streaming", "eval.parity",
                  "eval.vis", "data.device_cache", "data.camus", "data.camus_raw",
                  "data.echonet", "data.packed", "io.checkpoint", "io.metrics_log",
-                 "utils.profiling", "utils.optional"):
+                 "utils.profiling", "utils.optional", "cli", "__main__",
+                 "config.yaml_subset", "eval.infer", "eval.modulebench",
+                 "utils.scaling", "ops.gdr_counts"):
         assert f"gdkvm_tpu_torch.{name}" in mods, name
     res = subprocess.run([sys.executable, "-c", _GUARD, *mods], cwd=REPO,
                          capture_output=True, text=True, timeout=120)

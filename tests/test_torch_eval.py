@@ -279,9 +279,16 @@ def test_stream_evaluate_streams_equal_single(pair):
 
 
 def test_measuring_functions_refuse_the_cpu(pair):
-    """Latency and step time are device measurements."""
-    with pytest.raises(ValueError, match="CUDA"):
-        measure_streaming_latency(pair[2], torch.device("cpu"))
-    if not torch.cuda.is_available():
-        with pytest.raises(ValueError, match="CUDA"):
-            measure_train_step_time(lambda: {"loss": torch.zeros(())})
+    """Latency and step time have no default device, so none falls back to
+    the CPU; given the CPU by name they time it and say so."""
+    with pytest.raises(TypeError):
+        measure_streaming_latency(pair[2])
+    with pytest.raises(TypeError):
+        measure_train_step_time(lambda: {"loss": torch.zeros(())})
+    cpu = torch.device("cpu")
+    lat = measure_streaming_latency(pair[2], cpu, image_size=IMAGE, warmup=0, timed=1)
+    assert lat["device"] == "cpu" and lat["calls"] == 1
+    calls = []
+    step = measure_train_step_time(lambda: calls.append(0) or {"loss": torch.zeros(())}, cpu,
+                                   warmup=1, timed=2)
+    assert len(calls) == 3 and step["steps_per_sec"] > 0

@@ -218,7 +218,7 @@ def _replaced_fwd_fits(n, dk, dv):
     return 4 * min(small, dk * dv + n * m + gdr_cuda._panel_floats(dk, m)) <= limit
 
 
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [32, 48, 64, 128])
 @pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
 def test_launch_plan_takes_every_shape_the_old_kernel_took(d, bf16):
     """For every N from 1 to 301 that the replaced forward kernel took at
@@ -227,7 +227,7 @@ def test_launch_plan_takes_every_shape_the_old_kernel_took(d, bf16):
     U and W in fp32; the layouts switch to panels where A stops fitting."""
     b, h, t = 2, 3, 5
     taken = [n for n in range(1, 302) if _replaced_fwd_fits(n, d, d)]
-    assert taken[0] == 1 and len(taken) == {32: 301, 64: 301, 128: 71}[d]
+    assert taken[0] == 1 and len(taken) == {32: 301, 48: 301, 64: 301, 128: 71}[d]
     for n in taken:
         plan = gdr_cuda.fwd_launch_plan(b, h, t, n, d, d, bf16)
         assert plan["fits"], n
@@ -253,6 +253,12 @@ def test_serving_shape_fills_the_card():
     assert plan["scratch_bytes"] == 12_845_056 < 50e6
     train = gdr_cuda.fwd_launch_plan(8, 4, 10, 256, 64, 64, True)
     assert train["solve"]["panels"] and train["solve"]["grid"] == (320,)
+    # The other documented models: gdkvm_rt_112 (H=2, d=48: 3 column blocks
+    # a chain) and gdkvm_base_256 (H=6, N=256).
+    rt = gdr_cuda.fwd_launch_plan(8, 2, 16, 49, 48, 48, True)
+    assert rt["fits"] and rt["chain"]["grid"] == (16, 3) and not rt["solve"]["panels"]
+    base = gdr_cuda.fwd_launch_plan(2, 6, 10, 256, 64, 64, True)
+    assert base["fits"] and base["chain"]["grid"] == (12, 4) and base["solve"]["panels"]
 
 
 def _replaced_bwd_fits(n, dk, dv):
@@ -265,7 +271,7 @@ def _replaced_bwd_fits(n, dk, dv):
     return 4 * floats <= gdr_cuda.SMEM_LIMIT_BYTES
 
 
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [32, 48, 64, 128])
 @pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
 def test_bwd_launch_plan_takes_every_shape_the_old_kernel_took(d, bf16):
     """For every N from 1 to 301 that the replaced backward kernel took at
@@ -277,8 +283,8 @@ def test_bwd_launch_plan_takes_every_shape_the_old_kernel_took(d, bf16):
     b, h, t = 2, 3, 5
     for dk, dv in {(d, d), (32, 64)}:
         taken = [n for n in range(1, 302) if _replaced_bwd_fits(n, dk, dv)]
-        assert len(taken) == {(32, 32): 301, (64, 64): 301, (128, 128): 0,
-                              (32, 64): 301}[dk, dv]
+        assert len(taken) == {(32, 32): 301, (48, 48): 301, (64, 64): 301,
+                              (128, 128): 0, (32, 64): 301}[dk, dv]
         for n in taken:
             plan = gdr_cuda.bwd_launch_plan(b, h, t, n, dk, dv, bf16)
             assert plan["fits"], (n, dk, dv)
