@@ -36,7 +36,17 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    device), under ``GDKVM_GDR_FWD=monolith`` and ``=chain``; launches are
    counted (one residual-free launch a tick) and every session's masks are
    held against ``stream_video``, and chain against monolith;
-6. training (the second main path): ``train(cfg, max_steps)`` on the
+6. the exported artifact (the sixth main path): the bf16 ts8_112 model of
+   phase 5 through ``io.export.save_artifact`` at batch 8, chunk 16, and
+   ``load_artifact``: an eager call after the export returns real tensors,
+   the loaded graph holds the ``gdkvm_tpu_torch::gdr_fwd`` custom op, two
+   carried chunks match the eager model (logits and state within 1e-5 of
+   their largest) under either forward split, one residual-free launch a
+   step; ``BatchingEngine(artifact=...)`` serves phase 5's 8 sessions
+   under both splits (one launch a tick, masks against the model engine's
+   on ≥ 99.9% of pixels), and its frames/s and latency are timed against
+   the model engine's, in turns;
+7. training (the second main path): ``train(cfg, max_steps)`` on the
    ``ts8_256`` recipe (256², batch 8 × 10 frames, 4 classes, bootstrapped
    CE) on synthetic clips, in the stored and the fused backward mode, with
    every kernel's and plain version's calls counted (the run ends with the
@@ -44,7 +54,7 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    mode with the chain forward; one step's gradients (finite everywhere, nonzero in
    the LKVA projections) and the kernel path against the plain chunked
    path from the same weights, and chain against monolith;
-7. the training run (the fourth main path): ``train(cfg)`` on the
+8. the training run (the fourth main path): ``train(cfg)`` on the
    ``ts8_256`` recipe with data from disk, written here from a seed: a
    packed train/val split (32 + 8 clips of 10 frames at 256²) from the
    device cache, and the CAMUS PNG layout through the thread pool and the
@@ -54,28 +64,31 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    none during eval, no plain GDR call), steps/s with the data path
    inside is printed; a run resumed from checkpoint 6 is held against the
    unbroken run (parameters, EMA, AdamW moments, batch checksums);
-8. the ``gdn2`` model (η ≠ β from the model): a streamed chunk and two
+9. the ``gdn2`` model (η ≠ β from the model): a streamed chunk and two
    training steps under the stored and the fused backward against the same
    weights through the plain chunked GDR;
-9. streaming eval: ``stream_evaluate`` on 8 synthetic videos of 64 frames
+10. streaming eval: ``stream_evaluate`` on 8 synthetic videos of 64 frames
    at 112², one stream against 8 in flight;
-10. the command line (the fifth main path): ``python -m gdkvm_tpu_torch
+11. the command line (the fifth main path): ``python -m gdkvm_tpu_torch
    <command> --config configs/<file>.yaml key=value`` at the full width of
    the ts8 model, through ``cli.main`` in this process with every launch
-   counted (``info`` and ``serve`` as real subprocesses): ``pack`` of the
+   counted (``info``, ``serve`` and ``serve-check`` as subprocesses): ``pack`` of the
    PNG layout and ``validate-data``; ``train`` 12 steps of
    ``configs/gdkvm_ts8_256.yaml`` on the packed split (``config.yaml`` read
    back by ``load_config``); ``eval``, ``stream-eval --streams 8``,
    ``parity`` (CAMUS official scoring, biplane EF, the memory ablation) and
    ``infer`` (a PNG directory at another size, resized on the device and
    on the host) from the run's checkpoint, residual-free launches only;
+   ``export`` of the checkpoint at batch 1, ``serve-check`` of it as a
+   subprocess (a cold load; ``ok`` must be true) and ``infer --artifact``
+   on the same file at the artifact's size, its masks against ``infer``'s;
    ``serve`` of ``configs/gdkvm_ts8_112.yaml`` on port 0 with
    ``serve-bench`` against it, ended by SIGINT; ``bench`` in every mode
    (and once each through the backward kernel and the chain split);
    ``sweep``; ``scale``; and ``stream-eval`` of the two other documented
    models, ``gdkvm_rt_112`` (H=2, d=48) and ``gdkvm_base_256`` (H=6,
    N=256), against the same call under ``gdr_impl=chunked``;
-11. times on the card: frames/s of streaming and steps/s of training on both
+12. times on the card: frames/s of streaming and steps/s of training on both
    paths; serving frames/s, request latency p50/p95/p99 (16- and 256-frame
    requests), queue wait and service time and peak memory per forward
    split, in turns; each kernel against its plain version at its main
@@ -94,7 +107,9 @@ exits nonzero and prints no result.
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import functools
 import io
 import json
 import os
@@ -1169,11 +1184,12 @@ def _batched_stream(model, videos, chunk: int):
 
 
 @contextlib.contextmanager
-def _served(model):
-    """A BatchingEngine behind make_server on 127.0.0.1 (port 0), the
-    server on its own thread → (engine, (host, port)); all closed on exit."""
+def _served(model=None, artifact=None):
+    """A BatchingEngine around ``model`` or a loaded ``artifact`` behind
+    make_server on 127.0.0.1 (port 0), the server on its own thread →
+    (engine, (host, port)); all closed on exit."""
     from gdkvm_tpu_torch.serve import BatchingEngine, make_server
-    engine = BatchingEngine(model=model, **SERVE)
+    engine = BatchingEngine(model=model, artifact=artifact, **SERVE)
     server = make_server(engine, "127.0.0.1", 0)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
@@ -1202,7 +1218,8 @@ def phase_serve(device) -> dict:
     behind the HTTP server, with every count 0 just before and read just
     after.  Each session's masks are held against a reference on the same
     weights (SERVE_AGREE), and in fp32 the chain run's against the monolith
-    run's.  Returns the chain launches and the bf16 model."""
+    run's.  Returns the launches of each kernel, the bf16 model and its
+    served masks by split."""
     import numpy as np
     import torch
     from gdkvm_tpu_torch.eval.streaming import stream_video
@@ -1213,7 +1230,7 @@ def phase_serve(device) -> dict:
     refs = [v if v.shape[1:3] == (size, size) else
             resize_u8(torch.from_numpy(v).to(device), (size, size)).cpu().numpy()
             for v in videos]
-    chain_launches, models = 0, {}
+    launches, models = {"fwd_kernel": 0, "chain_kernel": 0}, {}
     for dtype in ("float32", "bfloat16"):
         os.environ.pop("GDKVM_GDR_FWD", None)     # references: the default split
         model = models[dtype] = _serve_model(device, dtype)
@@ -1247,7 +1264,7 @@ def phase_serve(device) -> dict:
                 raise AssertionError(f"serving counts [{dtype}, {mode}] {counts}: "
                                      f"expected {ticks} residual-free {key} launches, "
                                      f"one a tick, and nothing else")
-            chain_launches += counts["chain_kernel"]
+            launches[key] += counts[key]
             for got, want in zip(masks[mode], single):
                 if got.shape != want.shape or got.dtype != np.uint8 \
                         or int(got.max()) >= cfg.num_classes:
@@ -1265,7 +1282,9 @@ def phase_serve(device) -> dict:
         if min(agree) < bar:
             raise AssertionError(f"[{dtype}] chain vs monolith agreement {min(agree)} < {bar}")
     os.environ.pop("GDKVM_GDR_FWD")
-    return {"chain_launches": chain_launches, "model": models["bfloat16"]}
+    return {"fwd_launches": launches["fwd_kernel"],
+            "chain_launches": launches["chain_kernel"], "model": models["bfloat16"],
+            "masks": masks}
 
 
 def _bench_sessions(addr, sessions: int, frames: int, per_request: int) -> dict:
@@ -1350,6 +1369,169 @@ def phase_serve_times(device, model) -> dict:
             print(f"serve [{mode}] {name}: mean of {len(fps)} turns "
                   f"{statistics.mean(fps):.1f} frames/s")
     return runs
+
+
+# The exported artifact against the eager model on the same frames: max|Δ|
+# over max|eager| of the logits and of the carried state.
+EXPORT_REL = 1e-5
+EXPORT_OP = "gdkvm_tpu_torch.gdr_fwd.default"
+
+
+def phase_export(device, served: dict) -> dict:
+    """The exported artifact (the sixth main path): the bf16 ts8_112 model
+    of ``phase_serve`` saved by ``io.export.save_artifact`` at the engine's
+    batch 8 and chunk 16, and loaded back.  An eager call after the export
+    returns real tensors; the loaded graph holds the GDR's custom op; two
+    carried chunks through the artifact are held against the eager model
+    (EXPORT_REL), in each forward split, one residual-free launch a step;
+    then ``BatchingEngine(artifact=...)`` behind the HTTP server serves the
+    8 sessions of ``phase_serve``, counts 0 just before and read just
+    after, every session's masks held against the model engine's
+    (SERVE_AGREE); last, served frames/s and latency of the artifact engine
+    against the model engine, in turns.  The custom op alone passes
+    ``torch.library.opcheck`` on the card and matches the plain scan.
+    Returns the launches by kernel."""
+    import numpy as np
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensor
+    from gdkvm_tpu_torch.core import gdr
+    from gdkvm_tpu_torch.io.export import load_artifact, save_artifact
+    from gdkvm_tpu_torch.models import decoder
+    model, size, chunk = served["model"], SERVE["image_size"], SERVE["chunk"]
+    art = os.path.join(_scratch_dir("export"), "ts8_112")
+    os.environ.pop("GDKVM_GDR_FWD", None)
+    # The export is the first call to reach the decoder's resize sizes: a
+    # traced (fake) matrix must not reach the cache that eager calls read.
+    decoder._resize_tensor.cache_clear()
+    t0 = time.perf_counter()
+    meta = save_artifact(art, model, image_size=size, chunk=chunk, batch=SERVE["streams"])
+    t_export = time.perf_counter() - t0
+    frames = torch.from_numpy(np.random.default_rng(300).integers(
+        0, 256, (SERVE["streams"], 2 * chunk, size, size, 1), np.uint8)).to(device)
+    with torch.inference_mode():
+        logits, state = model(frames[:, :chunk].to(torch.float32) / 255.0)
+    if isinstance(logits, FakeTensor) or isinstance(state.mem, FakeTensor) \
+            or not torch.isfinite(logits).all():
+        raise AssertionError(f"an eager call after the export returned {type(logits)}")
+    t0 = time.perf_counter()
+    sm = load_artifact(art)
+    t_load = time.perf_counter() - t0
+    ops = [str(n.target) for n in sm.program.graph.nodes if n.op == "call_function"]
+    print(f"export: ts8_112 [bfloat16] at batch {sm.batch}, chunk {sm.chunk}, {size}²: "
+          f"model.pt2 {meta['blob_bytes']} bytes on {meta['platforms']}; export "
+          f"{t_export:.1f} s, load {t_load:.1f} s; {len(ops)} graph calls, "
+          f"{ops.count(EXPORT_OP)} of {EXPORT_OP}")
+    if ops.count(EXPORT_OP) != 1 or sm.device != device:
+        raise AssertionError(f"the loaded program: {ops.count(EXPORT_OP)} GDR op nodes "
+                             f"on {sm.device}")
+    # The op alone at the serving shape, in either split: torch.library's
+    # opcheck (schema; the fake implementation against the kernel's
+    # outputs) and its result against the plain scan.
+    op = torch.ops.gdkvm_tpu_torch.gdr_fwd
+    ins = _gdr_inputs(torch.Generator(device=device).manual_seed(8), *SERVE_SHAPE,
+                      torch.bfloat16, device)
+    plain = gdr.gdr_chunked(*ins)
+    for mode in ("monolith", "chain"):
+        os.environ["GDKVM_GDR_FWD"] = mode
+        torch.library.opcheck(op, (*ins, None))
+        err = max(_rel(x, p) for x, p in zip(op(*ins, None), plain))
+        print(f"export: {EXPORT_OP} [{mode}] at {SERVE_SHAPE} bf16: opcheck passed; "
+              f"against gdr_chunked {err:.3e} of the largest (bar {FWD_REL:g})")
+        if err > FWD_REL:
+            raise AssertionError(f"the custom op [{mode}] differs from gdr_chunked: {err}")
+    os.environ.pop("GDKVM_GDR_FWD")
+    print("export: the graph's most frequent calls: " + ", ".join(
+        f"{op.split('.')[-2] if '.' in op else op} {n}"
+        for op, n in collections.Counter(ops).most_common(8)))
+    # Host time of one step, eager model against the artifact, in turns,
+    # each call ended by a synchronize (the engine's ticks are host-bound).
+    step_ms = {"eager": [], "artifact": []}
+    x_u8 = frames[:, :chunk].contiguous()
+    mem0, seen0 = sm.init_state()
+
+    def eager_step():
+        with torch.inference_mode():
+            return model(x_u8.to(torch.float32) / 255.0)
+    for which in ("eager", "artifact", "artifact", "eager"):
+        call = eager_step if which == "eager" else (lambda: sm.step(x_u8, mem0, seen0))
+        for i in range(23):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            if i >= 3:
+                step_ms[which].append(1e3 * (time.perf_counter() - t0))
+    print("export: host ms a step (8 x 16 frames, synchronized), median of 40 in turns: "
+          + ", ".join(f"{w} {statistics.median(v):.3f} (min {min(v):.3f})"
+                      for w, v in step_ms.items()))
+    launches = {"fwd_kernel": 0, "chain_kernel": 0}
+    for mode in ("monolith", "chain"):
+        os.environ["GDKVM_GDR_FWD"] = mode
+        key = "chain_kernel" if mode == "chain" else "fwd_kernel"
+        mem, seen = sm.init_state()
+        got = []
+        _reset_counts()
+        for lo in (0, chunk):
+            out, mem, seen = sm.step(frames[:, lo:lo + chunk], mem, seen)
+            got.append(out)
+        counts = _read_counts()
+        launches[key] += counts[key]
+        state, want = None, []
+        with torch.inference_mode():
+            for lo in (0, chunk):
+                out, state = model(frames[:, lo:lo + chunk].to(torch.float32) / 255.0, state)
+                want.append(out)
+        _reset_counts()
+        err = max(_rel(g, w) for g, w in zip(got, want))
+        err_mem = _rel(mem, state.mem)
+        print(f"export [{mode}]: 2 carried chunks, artifact vs eager: logits "
+              f"{err:.3e}, mem {err_mem:.3e} of their largest (bar {EXPORT_REL:g}); "
+              f"frames_seen {seen.tolist()}; counts {counts}")
+        if counts != dict(_ZERO, **{key: 2}):
+            raise AssertionError(f"artifact [{mode}] counts {counts}: expected one "
+                                 f"residual-free {key} launch a step")
+        if err > EXPORT_REL or err_mem > EXPORT_REL \
+                or seen.tolist() != state.frames_seen.tolist():
+            raise AssertionError(f"artifact [{mode}] differs from the eager model")
+
+    videos = _serve_videos()
+    for mode in ("monolith", "chain"):
+        os.environ["GDKVM_GDR_FWD"] = mode
+        key = "chain_kernel" if mode == "chain" else "fwd_kernel"
+        with _served(artifact=sm) as (engine, addr):
+            _reset_counts()
+            ticks0 = engine.ticks
+            with ThreadPoolExecutor(max_workers=len(videos)) as pool:
+                masks = list(pool.map(lambda v: _one_session(addr, v), videos))
+            ticks = engine.ticks - ticks0
+            counts = _read_counts()
+        launches[key] += counts[key]
+        agree = [float((g == w).mean()) for g, w in zip(masks, served["masks"][mode])]
+        print(f"export [{mode}]: artifact engine, {ticks} ticks, counts {counts}; masks vs "
+              "the model engine's, per session: " + " ".join(f"{x:.6f}" for x in agree)
+              + f"; bar {SERVE_AGREE}")
+        if ticks < 1 or counts != dict(_ZERO, **{key: ticks}):
+            raise AssertionError(f"artifact serving counts [{mode}] {counts}: expected "
+                                 f"{ticks} residual-free {key} launches, one a tick")
+        if min(agree) < SERVE_AGREE:
+            raise AssertionError(f"artifact-served masks [{mode}] agree {min(agree)} "
+                                 f"< {SERVE_AGREE}")
+    os.environ.pop("GDKVM_GDR_FWD")
+
+    # Served rate and latency: the model engine and the artifact engine in
+    # turns, live 16-frame requests, 8 sessions at once.
+    rates = {"model": [], "artifact": []}
+    for which in ("model", "artifact", "artifact", "model"):
+        source = {"model": model} if which == "model" else {"artifact": sm}
+        with _served(**source) as (_, addr):
+            _bench_sessions(addr, 8, 32, 16)                # warm, untimed
+            rates[which].append(_bench_sessions(addr, 8, 256, 16))
+    for which, rs in rates.items():
+        print(f"export: {which} engine, live 16-frame requests: " + "; ".join(
+            f"{r['frames_per_sec']:.1f} frames/s, p50 {r['p50_ms']:.3f} p99 "
+            f"{r['p99_ms']:.3f} ms" for r in rs))
+    _reset_counts()
+    return {"fwd": launches["fwd_kernel"], "chain": launches["chain_kernel"]}
 
 
 def phase_chain_train(device) -> int:
@@ -1812,6 +1994,8 @@ TS8_112 = os.path.join(CONFIGS, "gdkvm_ts8_112.yaml")
 # values; their masks, compared in-process, must agree on MASK_AGREE.
 CLI_DICE = 2e-3
 MASK_AGREE = 0.999
+# Calls a row of `bench --mode modules --grad` (the command's default: 100).
+GRAD_REPS = 25
 
 
 def _cli(argv: list, rc: int = 0) -> list:
@@ -1913,10 +2097,27 @@ def _cli_serve_subprocess(tmp: str, smi: str) -> None:
 
 
 
+def _cli_serve_check_subprocess(art: str, smi: str) -> None:
+    """``serve-check`` of an artifact in a process of its own, which loads
+    it cold: its ``ok`` must be true."""
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "gdkvm_tpu_torch", "serve-check",
+                          "--artifact", art], cwd=REPO, env=_module_env(),
+                         capture_output=True, text=True, timeout=300)
+    if res.returncode != 0:
+        raise AssertionError(f"serve-check: rc {res.returncode}: {res.stderr[-2000:]}")
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    print(f"cli serve-check (subprocess, {time.perf_counter() - t0:.1f} s with the "
+          f"process's start) on {smi}: {json.dumps(out)}")
+    if out["ok"] is not True or out["logits_shape"] != [1, 16, 256, 256, 4] \
+            or out["frames_seen"] != [4 * 16]:
+        raise AssertionError(f"serve-check: {out}")
+
+
 def phase_cli(device, info: dict, roots: dict) -> dict:
     """The command-line main path: ``python -m gdkvm_tpu_torch <command>
     --config configs/<file>.yaml key=value``, through ``cli.main`` in this
-    process (``info`` and ``serve`` as real subprocesses), at the full
+    process (``info``, ``serve`` and ``serve-check`` as subprocesses), at the full
     width of the ts8 model, on the data ``phase_train_run`` wrote.  Every
     command's launches are counted; nothing here catches a failure.
     Returns the launches by kernel."""
@@ -2062,6 +2263,27 @@ def phase_cli(device, info: dict, roots: dict) -> dict:
         raise AssertionError("infer's masks differ from the restored model's")
     _reset_counts()
 
+    # export of the checkpoint at batch 1 (tracing launches nothing);
+    # serve-check in a process of its own; infer --artifact on the same
+    # file, decoded at the artifact's size, against infer's masks.
+    art = os.path.join(tmp, "artifact")
+    exported = _cli(["export", "--out", art, "--batch", "1"] + base)[-1]
+    tally("export", {})
+    print(f"cli export: {json.dumps(exported)}")
+    if exported["platforms"] != ["cuda"] or exported["signature"]["frames_u8"] != \
+            [1, 16, 256, 256, 1]:
+        raise AssertionError(f"export: {exported}")
+    _cli_serve_check_subprocess(art, smi)
+    _cli(["infer", "--input", source, "--out", out_dir + "_artifact", "--artifact", art]
+         + base)
+    tally("infer --artifact", {"fwd_kernel": 3})
+    via_art = np.load(os.path.join(out_dir + "_artifact", "masks.npz"))["masks"]
+    agree_art = float((via_art == host).mean()) if via_art.shape == host.shape else 0.0
+    print(f"cli infer --artifact: masks {via_art.shape} against infer's from the "
+          f"checkpoint {agree_art:.6f} (bar {MASK_AGREE})")
+    if agree_art < MASK_AGREE:
+        raise AssertionError("infer --artifact's masks differ from infer's")
+
     _cli_serve_subprocess(tmp, smi)
     tally("serve-bench (the server is another process)", {})
 
@@ -2071,11 +2293,19 @@ def phase_cli(device, info: dict, roots: dict) -> dict:
     for mode, extra in shapes.items():
         res = _cli(["bench", "--mode", mode, "--config", TS8_256] + extra)[-1]
         print(f"cli bench --mode {mode} {' '.join(extra)} on {smi}: {json.dumps(res)}")
-    grad = _cli(["bench", "--mode", "modules", "--grad", "--config", TS8_256,
-                 "--image-size", "256", "--chunk", "10", "--batch", "8"])[-1]
+    # Depth cut that makes room for the artifact's steps (PERF.md): the train-step
+    # breakdown over GRAD_REPS calls a row, not the command's 100.
+    from gdkvm_tpu_torch.eval import modulebench
+    full_breakdown = modulebench.grad_breakdown
+    modulebench.grad_breakdown = functools.partial(full_breakdown, reps=GRAD_REPS)
+    try:
+        grad = _cli(["bench", "--mode", "modules", "--grad", "--config", TS8_256,
+                     "--image-size", "256", "--chunk", "10", "--batch", "8"])[-1]
+    finally:
+        modulebench.grad_breakdown = full_breakdown
     print(f"cli bench --mode modules --grad on {smi}: {json.dumps(grad)}")
     if grad["_meta"]["clock"] != "cuda_events" or grad["_meta"]["device"] != name \
-            or not grad["lkva_gdr"]["flops_per_call"] > 0:
+            or grad["_meta"]["reps"] != GRAD_REPS or not grad["lkva_gdr"]["flops_per_call"] > 0:
         raise AssertionError(f"modules --grad: {grad}")
     counts = _read_counts()
     if counts["plain_fwd"] or counts["plain_chain"] or counts["plain_bwd"] \
@@ -2205,6 +2435,7 @@ def main() -> int:
     err_fwd = max(err_fwd, timed(phase_solve_vs_plain, device))
     stream = timed(phase_model, device)
     serve = timed(phase_serve, device)
+    export = timed(phase_export, device, serve)
     train_launches = timed(phase_train, device)
     chain_train_launches = timed(phase_chain_train, device)
     timed(phase_train_grads, device)
@@ -2226,9 +2457,9 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {"name": "gdr_fwd", "route": "cuda", "source": src + "gdr_fwd.cu",
          "replaces": "gdkvm_tpu/ops/gdr_pallas.py:513",
-         "launches": stream["launches"] + train_launches["fwd"]
-         + run["launches"]["fwd"] + gdn2["fwd"] + stream_eval_launches
-         + cli_launches["fwd"],
+         "launches": stream["launches"] + serve["fwd_launches"] + export["fwd"]
+         + train_launches["fwd"] + run["launches"]["fwd"] + gdn2["fwd"]
+         + stream_eval_launches + cli_launches["fwd"],
          "max_abs_err": err_fwd,
          **fwd_times, "library_ms": None},
         {"name": "gdr_fwd_residuals", "route": "cuda", "source": src + "gdr_fwd.cu",
@@ -2244,8 +2475,8 @@ def main() -> int:
          "library_ms": None},
         {"name": "gdr_chain", "route": "cuda", "source": src + "gdr_chain.cuh",
          "replaces": "gdkvm_tpu/ops/gdr_pallas.py:585",
-         "launches": serve["chain_launches"] + chain_train_launches
-         + cli_launches["chain"],
+         "launches": serve["chain_launches"] + export["chain"]
+         + chain_train_launches + cli_launches["chain"],
          "max_abs_err": err_chain, **chain_times["serve"]["kernel"],
          "library_ms": None},
     ]}))

@@ -9,11 +9,15 @@ train`` and ``bench --mode modules --grad`` run in grad mode; every other
 command runs the model under ``torch.inference_mode()``, so the GDR takes
 its residual-free forward.
 
+``export`` writes a ``torch.export`` artifact of the streaming step
+(io/export.py) for the one device type it runs on; ``serve-check``, ``serve
+--artifact`` and ``infer --artifact`` load it on ``--device``, which must be
+of that type.
+
 Not ported, each raising ``NotImplementedError`` with its item of ROADMAP
-Queue 1: ``quant`` and every ``--quant-scales`` (item 9), ``export``,
-``serve-check`` and ``--artifact`` (item 8), ``--mesh`` and a ``torchrun``
-environment with ``WORLD_SIZE`` > 1 under ``train`` (item 7), ``bench --mode
-all`` (items 4 and 9).
+Queue 1: ``quant`` and every ``--quant-scales`` (item 9), ``--mesh`` and a
+``torchrun`` environment with ``WORLD_SIZE`` > 1 under ``train`` (item 7),
+``bench --mode all`` (items 4 and 9).
 """
 
 from __future__ import annotations
@@ -26,7 +30,6 @@ import sys
 _NOT_PORTED = {
     4: "item 4: the port's benchmark entry",
     7: "item 7: distribution",
-    8: "item 8: io/export.py",
     9: "item 9: ops/quant.py, eval/regression.py",
 }
 
@@ -432,10 +435,12 @@ def cmd_sweep(argv) -> int:
 
 
 def cmd_infer(argv) -> int:
-    """Run a trained model on a cine file: AVI/MP4, raw CAMUS .mhd, or a
-    directory of PNG frames → masks.npz + overlays."""
+    """Run a trained model (or exported artifact) on a cine file: AVI/MP4,
+    raw CAMUS .mhd, or a directory of PNG frames → masks.npz + overlays."""
     from gdkvm_tpu_torch.config.schema import load_config
-    from gdkvm_tpu_torch.eval.infer import load_frames, run_inference
+    from gdkvm_tpu_torch.eval.infer import (artifact_image_size, load_frames,
+                                            run_inference)
+    from gdkvm_tpu_torch.io.export import load_artifact
 
     flags, overrides = _split_args(argv)
     p = argparse.ArgumentParser(prog="gdkvm infer")
@@ -446,7 +451,8 @@ def cmd_infer(argv) -> int:
     p.add_argument("--checkpoint", default=None,
                    help="checkpoint dir (defaults to <run_dir>/checkpoints)")
     p.add_argument("--artifact", default=None,
-                   help="exported artifact dir (not ported)")
+                   help="exported artifact dir (replaces checkpoint+model; "
+                        "exported for --device's type)")
     p.add_argument("--chunk", type=int, default=16)
     p.add_argument("--overlay-every", type=int, default=0,
                    help="write an overlay PNG every N frames (0 = none)")
@@ -456,30 +462,100 @@ def cmd_infer(argv) -> int:
                         "decodes")
     _add_device(p)
     args = p.parse_args(flags)
-    if args.artifact:
-        raise _not_ported("--artifact (inference through an exported "
-                          "artifact)", 8)
     cfg = load_config(args.config, overrides)
     device = _device(args.device)
-    frames = load_frames(args.input, cfg.data.image_size,
-                         host_resize=not args.device_resize)
-    model, _ = _load_model(cfg, args.checkpoint, device, "running")
-    summary = run_inference(frames, args.out, model=model, chunk=args.chunk,
-                            overlay_every=args.overlay_every,
-                            model_size=(cfg.data.image_size
-                                        if args.device_resize else None))
+    if args.artifact:
+        # Decode at the size the artifact was exported for, not the
+        # config's: the exported program has a fixed input signature.
+        sm = load_artifact(args.artifact, device)
+        frames = load_frames(args.input, artifact_image_size(args.artifact))
+        summary = run_inference(frames, args.out, artifact=sm,
+                                overlay_every=args.overlay_every)
+    else:
+        frames = load_frames(args.input, cfg.data.image_size,
+                             host_resize=not args.device_resize)
+        model, _ = _load_model(cfg, args.checkpoint, device, "running")
+        summary = run_inference(frames, args.out, model=model, chunk=args.chunk,
+                                overlay_every=args.overlay_every,
+                                model_size=(cfg.data.image_size
+                                            if args.device_resize else None))
     print(json.dumps(summary))
     return 0
 
 
 def cmd_export(argv) -> int:
-    """Export a trained model as a serving artifact (not ported)."""
-    raise _not_ported("export", 8)
+    """Export a trained model as a ``torch.export`` serving artifact
+    (frames in → logits and state out, parameters in the program), for the
+    device type of ``--device``."""
+    from gdkvm_tpu_torch.config.schema import load_config
+    from gdkvm_tpu_torch.io.export import save_artifact
+
+    flags, overrides = _split_args(argv)
+    p = argparse.ArgumentParser(prog="gdkvm export")
+    p.add_argument("--config", default=None)
+    p.add_argument("--checkpoint", default=None,
+                   help="checkpoint dir (defaults to <run_dir>/checkpoints; "
+                        "untrained init if absent)")
+    p.add_argument("--out", required=True, help="artifact directory")
+    p.add_argument("--chunk", type=int, default=16)
+    p.add_argument("--batch", type=int, default=1)
+    p.add_argument("--image-size", type=int, default=None,
+                   help="default: data.image_size")
+    p.add_argument("--platforms", default=None,
+                   help="the one device type to export for (cuda or cpu, "
+                        "--device's); a list of more than one raises")
+    p.add_argument("--quant-scales", default=None,
+                   help="W8A8 scales JSON (not ported)")
+    _add_device(p)
+    args = p.parse_args(flags)
+    if args.quant_scales:
+        raise _not_ported("--quant-scales (a W8A8 artifact)", 9)
+    cfg = load_config(args.config, overrides)
+    model, _ = _load_model(cfg, args.checkpoint, _device(args.device),
+                           "exporting")
+    platforms = args.platforms.split(",") if args.platforms else None
+    meta = save_artifact(args.out, model,
+                         image_size=args.image_size or cfg.data.image_size,
+                         chunk=args.chunk, batch=args.batch,
+                         platforms=platforms)
+    print(json.dumps({"out": args.out, "blob_bytes": meta["blob_bytes"],
+                      "platforms": meta["platforms"],
+                      "signature": meta["signature"]}))
+    return 0
 
 
 def cmd_serve_check(argv) -> int:
-    """Load an exported artifact and run a chunk through it (not ported)."""
-    raise _not_ported("serve-check", 8)
+    """Load an exported artifact and run a random chunk through it."""
+    import time
+    import numpy as np
+    import torch
+    from gdkvm_tpu_torch.io.export import load_artifact
+
+    p = argparse.ArgumentParser(prog="gdkvm serve-check")
+    p.add_argument("--artifact", required=True)
+    p.add_argument("--chunks", type=int, default=4)
+    _add_device(p)
+    args = p.parse_args(argv)
+    sm = load_artifact(args.artifact, _device(args.device))
+    sig = sm.meta["signature"]
+    rng = np.random.default_rng(0)
+    frames = torch.from_numpy(
+        rng.integers(0, 255, sig["frames_u8"], np.uint8)).to(sm.device)
+    mem, seen = sm.init_state()
+    logits = None
+    t0 = time.perf_counter()
+    for _ in range(args.chunks):
+        logits, mem, seen = sm.step(frames, mem, seen)
+    seen = seen.cpu()
+    dt = time.perf_counter() - t0
+    n_frames = args.chunks * sig["frames_u8"][0] * sig["frames_u8"][1]
+    print(json.dumps({
+        "ok": bool(torch.isfinite(logits).all()),
+        "logits_shape": list(logits.shape),
+        "frames_seen": seen.tolist(),
+        "frames_per_sec_incl_compile": round(n_frames / dt, 1),
+    }))
+    return 0
 
 
 def cmd_serve(argv) -> int:
@@ -495,7 +571,8 @@ def cmd_serve(argv) -> int:
     p.add_argument("--config", default=None)
     p.add_argument("--checkpoint", default=None)
     p.add_argument("--artifact", default=None,
-                   help="exported artifact dir (not ported)")
+                   help="exported artifact dir (must match --streams/--chunk; "
+                        "exported for --device's type)")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8477)
     p.add_argument("--streams", type=int, default=None,
@@ -521,21 +598,23 @@ def cmd_serve(argv) -> int:
     args = p.parse_args(flags)
     if args.mesh:
         raise _not_ported("--mesh (serving over several devices)", 7)
-    if args.artifact:
-        raise _not_ported("--artifact (serving an exported artifact)", 8)
     if args.quant_scales:
         raise _not_ported("--quant-scales (W8A8 serving)", 9)
     cfg = load_config(args.config, overrides)
     streams = args.streams or max(cfg.eval_stage.streams, 1)
     chunk = args.chunk or cfg.eval_stage.stream_chunk
-    model, _ = _load_model(cfg, args.checkpoint, _device(args.device),
-                           "serving")
-    engine = BatchingEngine(model=model, streams=streams, chunk=chunk,
-                            image_size=cfg.data.image_size,
-                            max_inflight_mb=args.max_inflight_mb,
-                            warmup=not args.no_warmup,
-                            pack_masks=not args.no_pack,
-                            session_ttl=args.session_ttl or None)
+    device = _device(args.device)
+    ekw = dict(streams=streams, chunk=chunk,
+               max_inflight_mb=args.max_inflight_mb, warmup=not args.no_warmup,
+               pack_masks=not args.no_pack, session_ttl=args.session_ttl or None)
+    if args.artifact:
+        from gdkvm_tpu_torch.io.export import load_artifact
+        engine = BatchingEngine(artifact=load_artifact(args.artifact, device),
+                                **ekw)
+    else:
+        model, _ = _load_model(cfg, args.checkpoint, device, "serving")
+        engine = BatchingEngine(model=model, image_size=cfg.data.image_size,
+                                **ekw)
     srv = make_server(engine, args.host, args.port)
     print(json.dumps({"serving": True,
                       "host": srv.server_address[0],

@@ -4,12 +4,10 @@ gdkvm_tpu/eval/infer.py).
 Inputs: an EchoNet-style ``.avi`` / ``.mp4`` (OpenCV), a directory of frame
 PNGs (a clip of the processed CAMUS layout; PIL), or a raw CAMUS MetaImage
 ``.mhd`` half sequence.  Inference is chunked streaming with the memory
-state carried, on the model's device; each chunk goes up in one copy
-(through pinned memory and without blocking on a card).  Outputs are
+state carried, on the model's device, or through an exported artifact
+(io/export.py) on the device it was exported for; each chunk goes up in one
+copy (through pinned memory and without blocking on a card).  Outputs are
 ``masks.npz``, optional overlay PNGs (eval/vis.py) and ``infer.json``.
-
-Inference through an exported artifact is not ported: the two functions
-for it raise.
 """
 
 from __future__ import annotations
@@ -23,12 +21,10 @@ import torch
 
 from gdkvm_tpu_torch.eval.metrics import mask_from_logits
 from gdkvm_tpu_torch.eval.streaming import _stage, model_device
+from gdkvm_tpu_torch.io.export import ServingModel, load_artifact, read_meta
 from gdkvm_tpu_torch.models.gdkvm import GDKVM
 from gdkvm_tpu_torch.ops.preproc import resize_matrices, resize_normalize
 from gdkvm_tpu_torch.utils.optional import require_cv2, require_pil
-
-_NO_ARTIFACT = ("inference through an exported artifact is not ported "
-                "(ROADMAP Queue 1, item 8: io/export.py)")
 
 
 def load_frames(path: str, image_size: int,
@@ -113,27 +109,57 @@ def infer_video_model(model: GDKVM, frames: np.ndarray, chunk: int = 16,
     return torch.cat(masks).cpu().numpy()         # the one fetch
 
 
-def infer_video_artifact(art_dir: str, frames: np.ndarray) -> np.ndarray:
-    raise NotImplementedError(_NO_ARTIFACT)
+def infer_video_artifact(artifact: str | ServingModel,
+                         frames: np.ndarray) -> np.ndarray:
+    """Chunked streaming inference through an exported artifact (its
+    directory, loaded where it was exported, or a loaded ServingModel) of
+    batch 1, at the size it was exported for: (F, H, W, 1) uint8 → (F, H,
+    W) uint8 argmax masks; a ragged last chunk is padded with zero frames
+    and cut."""
+    sm = load_artifact(artifact) if isinstance(artifact, str) else artifact
+    if sm.batch != 1:
+        raise ValueError(f"infer needs a batch-1 artifact, got {sm.batch}")
+    sig_hw = tuple(sm.meta["signature"]["frames_u8"][2:4])
+    if frames.shape[1:3] != sig_hw:
+        raise ValueError(
+            f"frames are {frames.shape[1:3]} but the artifact was exported "
+            f"for {sig_hw} — decode with the artifact's image size "
+            f"(gdkvm infer does this automatically)")
+    chunk = sm.chunk
+    mem, seen = sm.init_state()
+    masks = []
+    for lo in range(0, frames.shape[0], chunk):
+        part = frames[lo:lo + chunk]
+        t = part.shape[0]
+        if t < chunk:
+            part = np.pad(part, ((0, chunk - t), (0, 0), (0, 0), (0, 0)))
+        (dev,) = _stage(sm.device, part)
+        logits, mem, seen = sm.step(dev[None], mem, seen)
+        masks.append(mask_from_logits(logits[0])[:t])
+    return torch.cat(masks).cpu().numpy()         # the one fetch
 
 
 def artifact_image_size(art_dir: str) -> int:
-    raise NotImplementedError(_NO_ARTIFACT)
+    """Input H (= W) the artifact was exported for (from meta.json)."""
+    return int(read_meta(art_dir)["signature"]["frames_u8"][2])
 
 
 def run_inference(frames: np.ndarray, out_dir: str, *, model: Optional[GDKVM] = None,
-                  artifact: Optional[str] = None, chunk: int = 16,
+                  artifact: Optional[str | ServingModel] = None, chunk: int = 16,
                   overlay_every: int = 0,
                   model_size: Optional[int] = None) -> dict:
     """Infer masks and write ``masks.npz`` (and overlay PNGs every
     ``overlay_every`` frames, and ``infer.json``); returns the summary.
-    ``model``'s parameters are the ones to run.  ``model_size``: set when
-    the frames are at their decoded resolution, to resize on the device."""
+    ``model``'s parameters are the ones to run, or ``artifact``'s program
+    (:func:`infer_video_artifact`).  ``model_size``: set when the frames
+    are at their decoded resolution, to resize on the device."""
     from gdkvm_tpu_torch.eval.vis import overlay as make_overlay
 
     if artifact is not None:
-        raise NotImplementedError(_NO_ARTIFACT)
-    masks = infer_video_model(model, frames, chunk=chunk, model_size=model_size)
+        masks = infer_video_artifact(artifact, frames)
+    else:
+        masks = infer_video_model(model, frames, chunk=chunk,
+                                  model_size=model_size)
     os.makedirs(out_dir, exist_ok=True)
     np.savez_compressed(os.path.join(out_dir, "masks.npz"), masks=masks)
     n_overlays = 0

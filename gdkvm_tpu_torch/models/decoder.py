@@ -29,6 +29,16 @@ def _resize_tensor(src: int, dst: int, device: torch.device,
         return torch.tensor(resize_matrix(src, dst), device=device).to(dtype)
 
 
+def _resize_matrix(src: int, dst: int, device: torch.device,
+                   dtype: torch.dtype) -> Tensor:
+    """The (dst, src) resize matrix: cached for eager calls, made anew while
+    ``torch.export`` or ``torch.compile`` traces, whose tensors are fake and
+    must not reach the cache (a later eager call would get a fake one)."""
+    if torch.compiler.is_compiling():
+        return torch.tensor(resize_matrix(src, dst), device=device).to(dtype)
+    return _resize_tensor(src, dst, device, dtype)
+
+
 def resize_bilinear(x: Tensor, hw: Tuple[int, int]) -> Tensor:
     """Bilinear resize of NCHW maps as two products with the (dst, src)
     triangle-filter matrices: antialiased when downscaling, as
@@ -36,8 +46,8 @@ def resize_bilinear(x: Tensor, hw: Tuple[int, int]) -> Tensor:
     h, w = x.shape[-2:]
     if (h, w) == tuple(hw):
         return x
-    r_h = _resize_tensor(h, hw[0], x.device, x.dtype)
-    r_w = _resize_tensor(w, hw[1], x.device, x.dtype)
+    r_h = _resize_matrix(h, hw[0], x.device, x.dtype)
+    r_w = _resize_matrix(w, hw[1], x.device, x.dtype)
     y = torch.einsum("oh,bchw->bcow", r_h, x)
     return torch.einsum("pw,bchw->bchp", r_w, y)
 

@@ -38,12 +38,19 @@
   the monolith forward under ``stored`` write S_{t-1}, U and W in bf16,
   as the JAX package's does; the chain split keeps them fp32.
 
+- :func:`gdr_fwd_op` registers that residual-free forward as the custom op
+  ``torch.ops.gdkvm_tpu_torch.gdr_fwd`` (``torch.library``), which
+  ``torch.export`` keeps as one node (io/export.py): the kernels of the
+  ``GDKVM_GDR_FWD`` split on CUDA tensors, the plain
+  ``core.gdr.gdr_chunked`` on CPU tensors, and a fake implementation for
+  tracing.
 - :func:`gdr_kernel` is ``gdr_impl="pallas"``: the kernels, or raise.
   :func:`gdr_fwd` is ``gdr_impl="auto"``: the kernels for CUDA tensors, the
   plain ``core.gdr.gdr_chunked`` for CPU tensors.  When no input needs a
-  gradient (``torch.no_grad``, ``inference_mode``) both launch one
-  residual-free forward kernel.  A CUDA tensor never takes a plain
-  version of a kernel: the kernel launches or the call raises.
+  gradient (``torch.no_grad``, ``inference_mode``) both call the custom op
+  (on the card: one residual-free forward launch).  A CUDA tensor never
+  takes a plain version of a kernel: the kernel launches or the call
+  raises.
 
 Shapes as in ``core/gdr.py``: q, k (B, H, T, N, d_k); v (B, H, T, N, d_v);
 beta, eta (B, H, T, N); alpha (B, H, T); s0 (B, H, d_k, d_v) →
@@ -535,6 +542,40 @@ def _fwd_no_residuals(q: Tensor, k: Tensor, v: Tensor, beta: Tensor,
     return gdr_fwd_cuda(q, k, v, beta, alpha, s0, eta)
 
 
+@torch.library.custom_op("gdkvm_tpu_torch::gdr_fwd", mutates_args=(),
+                         device_types="cuda")
+def gdr_fwd_op(q: Tensor, k: Tensor, v: Tensor, beta: Tensor, alpha: Tensor,
+               s0: Tensor, eta: Optional[Tensor]) -> Tuple[Tensor, Tensor]:
+    """``torch.ops.gdkvm_tpu_torch.gdr_fwd``: the residual-free forward as
+    a custom op, so that ``torch.export`` keeps it as one node of the
+    exported program.  On CUDA tensors it launches the ``GDKVM_GDR_FWD``
+    split's kernel (read when it runs, in an exported program too); on CPU
+    tensors it runs the plain ``core.gdr.gdr_chunked``.  Not
+    differentiable: the gradient route is :class:`GDRFunction`."""
+    # An exported program hands over its tensors as it made them: the
+    # kernels take them contiguous.
+    return _fwd_no_residuals(*(x.contiguous() for x in (q, k, v, beta, alpha, s0)),
+                             None if eta is None else eta.contiguous())
+
+
+@gdr_fwd_op.register_kernel("cpu")
+def _gdr_fwd_op_cpu(q: Tensor, k: Tensor, v: Tensor, beta: Tensor,
+                    alpha: Tensor, s0: Tensor, eta: Optional[Tensor]
+                    ) -> Tuple[Tensor, Tensor]:
+    return gdr.gdr_chunked(q, k, v, beta, alpha, s0, eta)
+
+
+@gdr_fwd_op.register_fake
+def _gdr_fwd_op_fake(q: Tensor, k: Tensor, v: Tensor, beta: Tensor,
+                     alpha: Tensor, s0: Tensor, eta: Optional[Tensor]
+                     ) -> Tuple[Tensor, Tensor]:
+    """o (B, H, T, N, d_v) and s_T (B, H, d_k, d_v), both fp32, as the
+    kernels and the plain scan write them."""
+    f32 = torch.float32
+    return (q.new_empty((*q.shape[:-1], v.shape[-1]), dtype=f32),
+            s0.new_empty(s0.shape, dtype=f32))
+
+
 class GDRFunction(torch.autograd.Function):
     """The kernel route with a gradient.  ``apply(q, k, v, beta, alpha, s0,
     eta)``; ``eta=None`` is the coupled rule (η = β), whose β gradient is
@@ -610,13 +651,21 @@ def gdr_kernel(q: Tensor, k: Tensor, v: Tensor, beta: Tensor, alpha: Tensor,
     eta = None if eta is None else eta.contiguous()
     if _needs_grad(*args, eta):
         return GDRFunction.apply(*args, eta)
+    if q.is_cuda:
+        return gdr_fwd_op(*args, eta)
+    # The op's CPU implementation is the plain scan, which this route never
+    # runs: CPU tensors go to the launchers, which raise.
     return _fwd_no_residuals(*args, eta)
 
 
 def gdr_fwd(q: Tensor, k: Tensor, v: Tensor, beta: Tensor, alpha: Tensor,
             s0: Tensor, eta: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
-    """``gdr_impl="auto"``: the kernels for CUDA tensors, the plain chunked
-    form (differentiated by autograd) for CPU tensors."""
+    """``gdr_impl="auto"``: the kernels for CUDA tensors; for CPU tensors
+    the plain chunked form, through the custom op without a gradient to
+    take (so that a CPU export holds the op's node too), differentiated by
+    autograd with one."""
     if q.is_cuda:
         return gdr_kernel(q, k, v, beta, alpha, s0, eta)
-    return gdr.gdr_chunked(q, k, v, beta, alpha, s0, eta)
+    if _needs_grad(q, k, v, beta, alpha, s0, eta):
+        return gdr.gdr_chunked(q, k, v, beta, alpha, s0, eta)
+    return gdr_fwd_op(q, k, v, beta, alpha, s0, eta)

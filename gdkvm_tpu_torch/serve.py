@@ -1,5 +1,6 @@
 """Serving: a slot-pool batching engine with a stdlib HTTP front end and
-client (port of gdkvm_tpu/serve.py on the live-model path, one device).
+client (port of gdkvm_tpu/serve.py on one device: the live model, or an
+exported artifact of io/export.py).
 
 Design:
   - A fixed pool of ``streams`` slots.  Every tick advances all slots in one
@@ -25,8 +26,9 @@ Design:
     beyond the bound ``infer`` raises :class:`EngineOverloaded` (HTTP 429).
   - Idle sessions are reclaimed after ``session_ttl`` seconds.
 
-The engine runs on its model's device and never moves work elsewhere: a
-CUDA model runs on its card, a CPU model on the CPU.  Grad mode is
+The engine runs on its model's device (an artifact's: where it was
+exported) and never moves work elsewhere: a CUDA model runs on its card, a
+CPU model on the CPU.  Grad mode is
 thread-local in PyTorch, so the engine's threads enter
 ``torch.inference_mode()`` themselves: the GDR runs its residual-free
 forward whatever the caller's mode.
@@ -54,6 +56,7 @@ import torch
 
 from gdkvm_tpu_torch.eval.metrics import mask_from_logits
 from gdkvm_tpu_torch.eval.streaming import model_device
+from gdkvm_tpu_torch.io.export import ServingModel, load_artifact
 from gdkvm_tpu_torch.models.gdkvm import GDKVM, StreamState
 from gdkvm_tpu_torch.ops.preproc import resize_matrices, resize_u8
 
@@ -96,27 +99,48 @@ class _Piece:
 
 
 class BatchingEngine:
-    """Slot-pool batching engine around one multi-stream model call a tick."""
+    """Slot-pool batching engine around one multi-stream step a tick: the
+    model's, or an exported artifact's (``artifact``: its directory or a
+    loaded :class:`~gdkvm_tpu_torch.io.export.ServingModel`, exported for
+    batch ``streams`` and chunk ``chunk``; the image size is its own)."""
 
-    def __init__(self, *, model: GDKVM, streams: int = 4, chunk: int = 16,
-                 image_size: int = 112, warmup: bool = True,
+    def __init__(self, *, model: Optional[GDKVM] = None, streams: int = 4,
+                 chunk: int = 16, image_size: int = 112, warmup: bool = True,
                  max_inflight_mb: float = 256.0, pack_masks: bool = True,
                  session_ttl: Optional[float] = None, mesh=None,
-                 artifact=None):
+                 artifact: Optional[str | ServingModel] = None):
         if mesh is not None:
             raise NotImplementedError(
                 "mesh serving is not ported (ROADMAP Queue 1, item 7: "
                 "distribution)")
-        if artifact is not None:
-            raise NotImplementedError(
-                "serving an exported artifact is not ported (ROADMAP Queue 1, "
-                "item 8: io/export.py)")
-        self.model = model
-        self.device = model_device(model)
         self.streams = streams
         self.chunk = chunk
-        self.image_size = image_size
-        self.num_classes = model.cfg.num_classes
+        if artifact is not None:
+            sm = load_artifact(artifact) if isinstance(artifact, str) else artifact
+            sig = sm.meta["signature"]
+            if sig["frames_u8"][0] != streams or sig["frames_u8"][1] != chunk:
+                raise ValueError(
+                    f"artifact was exported for batch={sig['frames_u8'][0]} "
+                    f"chunk={sig['frames_u8'][1]}; serve requested "
+                    f"streams={streams} chunk={chunk} — re-export with "
+                    f"--batch/--chunk matching the serve config")
+            self.device = sm.device
+            self.image_size, self.in_channels = sig["frames_u8"][2], sig["frames_u8"][4]
+            self.num_classes = sm.meta["num_classes"]
+            mem_shape = tuple(sig["mem"])
+            self._raw_step = sm.step
+        else:
+            cfg = model.cfg
+            self.device = model_device(model)
+            self.image_size, self.in_channels = image_size, cfg.in_channels
+            self.num_classes = cfg.num_classes
+            mem_shape = (streams, cfg.num_heads, cfg.head_dim_k, cfg.head_dim_v)
+
+            def model_step(frames_u8, mem, seen):
+                logits, st = model(frames_u8.to(torch.float32) / 255.0,
+                                   StreamState(mem=mem, frames_seen=seen))
+                return logits, st.mem, st.frames_seen
+            self._raw_step = model_step
 
         # Mask transfer packing: exact b-bit encoding, b = bits needed for
         # num_classes, provided the row length divides the pixels/byte.
@@ -124,17 +148,15 @@ class BatchingEngine:
             2 if self.num_classes <= 4 else \
             4 if self.num_classes <= 16 else 8
         self._pack_bits = bits if (pack_masks and bits < 8 and
-                                   image_size % (8 // bits) == 0) else 8
+                                   self.image_size % (8 // bits) == 0) else 8
 
-        cfg = model.cfg
         with torch.inference_mode():
-            self._mem = torch.zeros((streams, cfg.num_heads, cfg.head_dim_k,
-                                     cfg.head_dim_v), dtype=torch.float32,
+            self._mem = torch.zeros(mem_shape, dtype=torch.float32,
                                     device=self.device)
             self._seen = torch.zeros((streams,), dtype=torch.int32,
                                      device=self.device)
-            self._zero = torch.zeros((chunk, image_size, image_size,
-                                      cfg.in_channels), dtype=torch.uint8,
+            self._zero = torch.zeros((chunk, self.image_size, self.image_size,
+                                      self.in_channels), dtype=torch.uint8,
                                      device=self.device)
 
         self._resize_cache: "OrderedDict[tuple, Tuple[Tensor, Tensor]]" = \
@@ -197,11 +219,10 @@ class BatchingEngine:
         per_slot = (-1, 1, 1, 1)
         mem_in = self._mem * (1.0 - resets).view(per_slot)
         seen_in = self._seen * (1 - resets.to(torch.int32))
-        logits, st = self.model(frames.to(torch.float32) / 255.0,
-                                StreamState(mem=mem_in, frames_seen=seen_in))
+        logits, mem, seen = self._raw_step(frames, mem_in, seen_in)
         masks = mask_from_logits(logits)
-        self._mem = torch.where(active.view(per_slot) > 0, st.mem, mem_in)
-        self._seen = torch.where(active > 0, st.frames_seen, seen_in)
+        self._mem = torch.where(active.view(per_slot) > 0, mem, mem_in)
+        self._seen = torch.where(active > 0, seen, seen_in)
         return masks
 
     def _post_bucket(self, n_active: int) -> int:
@@ -371,8 +392,8 @@ class BatchingEngine:
         if video_u8.ndim == 3:
             video_u8 = video_u8[..., None]
         if video_u8.ndim != 4 or video_u8.shape[0] < 1 \
-                or video_u8.shape[-1] != self.model.cfg.in_channels:
-            raise ValueError(f"frames must be (T, H, W[, {self.model.cfg.in_channels}]) "
+                or video_u8.shape[-1] != self.in_channels:
+            raise ValueError(f"frames must be (T, H, W[, {self.in_channels}]) "
                              f"with T >= 1, got {video_u8.shape}")
         t_total, hh, ww = video_u8.shape[:3]
         with self._lock:

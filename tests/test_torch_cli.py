@@ -96,7 +96,9 @@ def test_module_entry_prints_usage_and_exits_2():
 NEEDS_DEVICE = [
     ["train"], ["eval"], ["bench"], ["bench", "--mode", "train"],
     ["bench", "--mode", "modules"], ["stream-eval"], ["parity"], ["serve", "--port", "0"],
-    ["infer", "--input", "x.avi", "--out", "o"], ["sweep", "learning_rate=1e-4,1e-3"]]
+    ["infer", "--input", "x.avi", "--out", "o"], ["sweep", "learning_rate=1e-4,1e-3"],
+    ["export", "--out", "a"], ["serve", "--artifact", "a", "--port", "0"],
+    ["infer", "--artifact", "a", "--input", "x.avi", "--out", "o"]]
 
 
 @pytest.mark.parametrize("argv", NEEDS_DEVICE, ids=lambda a: "-".join(a[:3]))
@@ -109,11 +111,17 @@ def test_commands_default_to_cuda_and_never_fall_back(argv, tmp_path, monkeypatc
     assert not os.path.exists(tmp_path / "config.yaml")
 
 
+def test_serve_check_defaults_to_cuda(tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device; pass --device cpu"):
+        main(["serve-check", "--artifact", str(tmp_path)])
+
+
 NOT_PORTED = [
-    (["quant"], 9), (["export", "--out", "a"], 8), (["serve-check", "--artifact", "a"], 8),
+    (["quant"], 9), (["export", "--out", "a", "--quant-scales", "s.json"], 9),
     (["stream-eval", "--quant-scales", "s.json"], 9), (["parity", "--quant-scales", "s.json"], 9),
-    (["serve", "--quant-scales", "s.json"], 9), (["serve", "--artifact", "a"], 8),
-    (["serve", "--mesh", "auto"], 7), (["infer", "--input", "x", "--out", "o", "--artifact", "a"], 8),
+    (["serve", "--quant-scales", "s.json"], 9), (["serve", "--artifact", "a", "--mesh", "auto"], 7),
+    (["serve", "--mesh", "auto"], 7),
     (["bench", "--mode", "all", "--smoke"], 4), (["bench", "--mode", "all"], 9),
     (["train", "--device", "cpu", "parallel.model_axis=2"], 7),
     (["train", "--device", "cpu", "parallel.data_axis=4"], 7)]
@@ -342,6 +350,87 @@ def test_serve_subprocess_and_serve_bench(trained):
                             "request_latency_ms_p95", "request_latency_ms_p99",
                             "latency_ms_per_frame_p50"}
         assert client.health()["ticks"] > before["ticks"]
+        proc.send_signal(signal.SIGINT)
+        assert proc.wait(timeout=60) == 0, proc.stderr.read()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        proc.stdout.close()
+        proc.stderr.close()
+
+
+@pytest.fixture(scope="module")
+def artifact(trained, tmp_path_factory):
+    """export of the run's checkpoint (the EMA weights), batch 1, chunk 4,
+    on the CPU → (its directory, export's JSON)."""
+    art = str(tmp_path_factory.mktemp("export") / "art")
+    out = run(["export", "--device", "cpu", "--out", art, "--chunk", "4"] + trained[1])[-1]
+    return art, out
+
+
+def test_export_and_serve_check_from_the_checkpoint(trained, artifact):
+    """export prints the JAX package's keys for a cpu artifact of the
+    run's checkpoint, whose program gives the restored model's logits;
+    serve-check loads it and prints ok with JAX's keys; a list of two
+    platforms raises."""
+    from gdkvm_tpu_torch.io.export import load_artifact
+    art, out = artifact
+    assert set(out) == {"out", "blob_bytes", "platforms", "signature"}
+    assert out["platforms"] == ["cpu"] and out["out"] == art
+    assert out["signature"]["frames_u8"] == [1, 4, IMAGE, IMAGE, 1]
+    assert out["blob_bytes"] == os.path.getsize(os.path.join(art, "model.pt2"))
+    model, step = cli._load_model(schema.load_config(None, trained[1]), None,
+                                  torch.device("cpu"), "testing")
+    frames = torch.randint(0, 256, (1, 4, IMAGE, IMAGE, 1), dtype=torch.uint8,
+                           generator=torch.Generator().manual_seed(1))
+    sm = load_artifact(art, "cpu")
+    logits, _, _ = sm.step(frames, *sm.init_state())
+    with torch.no_grad():
+        want, _ = model(frames.to(torch.float32) / 255.0)
+    assert step == 4 and (logits - want).abs().max().item() <= 1e-6
+    check = run(["serve-check", "--device", "cpu", "--artifact", art, "--chunks", "2"])[-1]
+    assert set(check) == {"ok", "logits_shape", "frames_seen", "frames_per_sec_incl_compile"}
+    assert check["ok"] is True and check["logits_shape"] == [1, 4, IMAGE, IMAGE, 4]
+    assert check["frames_seen"] == [8] and check["frames_per_sec_incl_compile"] > 0
+    with pytest.raises(ValueError, match="one device type"):
+        main(["export", "--device", "cpu", "--out", art + "2", "--platforms", "cpu,cuda"]
+             + trained[1])
+
+
+def test_infer_artifact_equals_infer(trained, camus_root, artifact, tmp_path):
+    """infer --artifact on a PNG clip gives infer's masks from the same
+    checkpoint."""
+    over = trained[1]
+    clip = os.path.join(camus_root, "val", sorted(os.listdir(os.path.join(camus_root, "val")))[0])
+    run(["infer", "--device", "cpu", "--input", clip, "--out", str(tmp_path / "m"),
+         "--chunk", "4"] + over)
+    got = run(["infer", "--device", "cpu", "--input", clip, "--out", str(tmp_path / "a"),
+               "--artifact", artifact[0]] + over)[-1]
+    assert got["frames"] == 8
+    np.testing.assert_array_equal(np.load(tmp_path / "a" / "masks.npz")["masks"],
+                                  np.load(tmp_path / "m" / "masks.npz")["masks"])
+
+
+def test_serve_artifact_subprocess(trained, artifact):
+    """serve --artifact as a subprocess: the artifact's size, one slot of
+    its chunk; a session's masks are infer_video_artifact's; SIGINT ends it
+    with exit code 0."""
+    from gdkvm_tpu_torch.eval.infer import infer_video_artifact
+    from gdkvm_tpu_torch.serve import ServeClient
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "gdkvm_tpu_torch", "serve", "--device", "cpu", "--port", "0",
+         "--streams", "1", "--chunk", "4", "--artifact", artifact[0]] + trained[1],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env, cwd=REPO)
+    try:
+        first = json.loads(proc.stdout.readline())
+        assert (first["streams"], first["chunk"], first["image_size"]) == (1, 4, IMAGE)
+        client = ServeClient(first["host"], first["port"])
+        client.open()
+        video = np.random.default_rng(3).integers(0, 255, (6, IMAGE, IMAGE, 1), np.uint8)
+        np.testing.assert_array_equal(client.infer(video),
+                                      infer_video_artifact(artifact[0], video))
+        client.close()
         proc.send_signal(signal.SIGINT)
         assert proc.wait(timeout=60) == 0, proc.stderr.read()
     finally:

@@ -92,13 +92,53 @@ def test_infer_masks_match_jax(pair, sources, tmp_path, device_resize):
     assert torch.is_grad_enabled() and not torch.is_inference_mode_enabled()
 
 
-def test_artifact_inference_is_not_ported(tmp_path):
-    frames = np.zeros((2, IMAGE, IMAGE, 1), np.uint8)
-    for call in (lambda: infer.infer_video_artifact("art", frames),
-                 lambda: infer.artifact_image_size("art"),
-                 lambda: infer.run_inference(frames, str(tmp_path), artifact="art")):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 8"):
-            call()
+# tests/test_infer.py's model, as key=value overrides of the command line.
+SMALL = ["model.enc_channels=[8,16,24,32]", "model.enc_blocks=[1,1,1,1]",
+         "model.num_heads=2", "model.head_dim_k=16", "model.head_dim_v=16",
+         "model.kpff_channels=[24,16,8]", "model.compute_dtype=float32"]
+
+
+def _cli(argv):
+    from gdkvm_tpu_torch.cli import main
+    assert main(argv[:1] + ["--device", "cpu"] + argv[1:]) == 0
+
+
+def test_infer_cli_model_and_artifact(sources, tmp_path):
+    """infer end to end on the CPU: the checkpoint-free model path and an
+    artifact exported from the same (untrained, seeded) weights give the
+    same masks; the artifact path writes the same summary and overlays."""
+    small = SMALL + [f"data.image_size={IMAGE}", f"runtime.run_dir={tmp_path}/none"]
+    out_a, out_b, art = (str(tmp_path / d) for d in ("out_model", "out_art", "art"))
+    _cli(["infer", "--input", sources["avi"], "--out", out_a, "--chunk", "4",
+          "--overlay-every", "3"] + small)
+    summary = json.load(open(os.path.join(out_a, "infer.json")))
+    assert summary["frames"] == 9 and summary["overlays"] == 3
+    masks_a = np.load(os.path.join(out_a, "masks.npz"))["masks"]
+    assert masks_a.shape == (9, IMAGE, IMAGE) and masks_a.dtype == np.uint8
+    _cli(["export", "--out", art, "--chunk", "4", "--image-size", str(IMAGE)] + small)
+    assert infer.artifact_image_size(art) == IMAGE
+    _cli(["infer", "--input", sources["avi"], "--out", out_b, "--artifact", art,
+          "--overlay-every", "3"] + small)
+    np.testing.assert_array_equal(masks_a, np.load(os.path.join(out_b, "masks.npz"))["masks"])
+    assert {k: v for k, v in json.load(open(os.path.join(out_b, "infer.json"))).items()
+            if k != "out"} == {k: v for k, v in summary.items() if k != "out"}
+    assert os.listdir(os.path.join(out_b, "overlays")) == os.listdir(
+        os.path.join(out_a, "overlays"))
+
+
+def test_infer_artifact_decodes_at_the_exported_size(sources, tmp_path):
+    """--artifact decodes at the size the artifact was exported for, not the
+    config's; infer_video_artifact refuses frames of another size."""
+    small = SMALL + [f"runtime.run_dir={tmp_path}/none"]
+    art = str(tmp_path / "art48")
+    _cli(["export", "--out", art, "--chunk", "4", "--image-size", "48"] + small)
+    out = str(tmp_path / "out48")
+    # The config says 32; the artifact was exported at 48 and wins.
+    _cli(["infer", "--input", sources["pngs"], "--out", out, "--artifact", art,
+          f"data.image_size={IMAGE}"] + small)
+    assert np.load(os.path.join(out, "masks.npz"))["masks"].shape == (7, 48, 48)
+    with pytest.raises(ValueError, match="exported for \\(48, 48\\)"):
+        infer.infer_video_artifact(art, np.zeros((2, IMAGE, IMAGE, 1), np.uint8))
 
 
 def test_long_stream_matches_jax():

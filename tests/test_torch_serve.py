@@ -1,8 +1,9 @@
 """The port's serving engine and HTTP layer (gdkvm_tpu_torch/serve.py), on
 the CPU, with a narrow fp32 model.
 
-The tests of tests/test_serve.py that need no mesh, quantization or
-exported artifact, held against the port's own stream_video.  The
+The tests of tests/test_serve.py that need no mesh or quantization, held
+against the port's own stream_video, and the engine serving an exported
+artifact against the engine serving the model.  The
 load-bearing check is exactness: masks served through the multi-stream
 engine (idle-slot freezing, state carry, chunk splitting, bit-packing)
 equal stream_video's per session.
@@ -17,6 +18,7 @@ import torch
 
 from gdkvm_tpu_torch.config.schema import ModelConfig
 from gdkvm_tpu_torch.eval.streaming import stream_video
+from gdkvm_tpu_torch.io.export import load_artifact, save_artifact
 from gdkvm_tpu_torch.models.gdkvm import GDKVM, init_params
 from gdkvm_tpu_torch.serve import (_RESIZE_CACHE_MAX, BatchingEngine,
                                    EngineOverloaded, ServeClient, _Piece,
@@ -464,10 +466,42 @@ def test_engine_threads_take_the_residual_free_kernel(fwd):
 
 
 def test_unported_serving_options_raise(small_model):
+    """mesh= raises citing item 7, with a model and with an artifact."""
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 7"):
         BatchingEngine(model=small_model, mesh=object(), warmup=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 8"):
-        BatchingEngine(model=small_model, artifact="art/", warmup=False)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 7"):
+        BatchingEngine(artifact="art/", mesh=object(), warmup=False)
+
+
+@pytest.fixture(scope="module")
+def artifact(small_model, tmp_path_factory):
+    """small_model exported for 3 slots of CHUNK frames at SIZE, loaded."""
+    art = str(tmp_path_factory.mktemp("art") / "art")
+    save_artifact(art, small_model, image_size=SIZE, chunk=CHUNK, batch=3)
+    return load_artifact(art)
+
+
+def test_artifact_engine_matches_model_engine(small_model, engine, artifact):
+    """An engine serving the exported artifact gives the model engine's
+    masks for every session (ragged tails, a resized session), takes its
+    size and classes from meta.json and runs on the artifact's device."""
+    eng = BatchingEngine(artifact=artifact, streams=3, chunk=CHUNK, image_size=7)
+    try:
+        assert (eng.image_size, eng.num_classes, eng.device) == (SIZE, 2, torch.device("cpu"))
+        videos = [_video(20, t=10), _video(21, t=5),
+                  np.random.default_rng(22).integers(0, 255, (6, 40, 56, 1), np.uint8)]
+        for vid in videos:
+            got = eng.infer(eng.open_session()["session"], vid)
+            want = engine.infer(engine.open_session()["session"], vid)
+            np.testing.assert_array_equal(got, want)
+    finally:
+        eng.close()
+
+
+@pytest.mark.parametrize("streams,chunk", [(2, CHUNK), (3, CHUNK + 1)])
+def test_artifact_engine_refuses_another_batch_or_chunk(artifact, streams, chunk):
+    with pytest.raises(ValueError, match="artifact was exported for batch=3 chunk=4"):
+        BatchingEngine(artifact=artifact, streams=streams, chunk=chunk, warmup=False)
 
 
 def test_infer_rejects_bad_frames(engine):
