@@ -1184,12 +1184,12 @@ def _batched_stream(model, videos, chunk: int):
 
 
 @contextlib.contextmanager
-def _served(model=None, artifact=None):
-    """A BatchingEngine around ``model`` or a loaded ``artifact`` behind
-    make_server on 127.0.0.1 (port 0), the server on its own thread →
-    (engine, (host, port)); all closed on exit."""
+def _served(model=None, artifact=None, mesh=None):
+    """A BatchingEngine around ``model`` (over ``mesh`` when given) or a
+    loaded ``artifact`` behind make_server on 127.0.0.1 (port 0), the
+    server on its own thread → (engine, (host, port)); all closed on exit."""
     from gdkvm_tpu_torch.serve import BatchingEngine, make_server
-    engine = BatchingEngine(model=model, artifact=artifact, **SERVE)
+    engine = BatchingEngine(model=model, artifact=artifact, mesh=mesh, **SERVE)
     server = make_server(engine, "127.0.0.1", 0)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
@@ -1284,7 +1284,7 @@ def phase_serve(device) -> dict:
     os.environ.pop("GDKVM_GDR_FWD")
     return {"fwd_launches": launches["fwd_kernel"],
             "chain_launches": launches["chain_kernel"], "model": models["bfloat16"],
-            "masks": masks}
+            "masks": masks, "bf16_bar": bar}
 
 
 def _bench_sessions(addr, sessions: int, frames: int, per_request: int) -> dict:
@@ -2383,6 +2383,363 @@ def phase_cli(device, info: dict, roots: dict) -> dict:
             "chain": total["chain_kernel"]}
 
 
+# ------------------------------------------------------ distribution
+
+# Two ranks on one card against one process: parameters after DIST_STEPS
+# steps within the JAX package's data-parallel tolerances
+# (tests/test_sharding.py), the losses within DIST_LOSS_REL, the gradient
+# norms within DIST_NORM_REL (only the order of the sums over the batch
+# differs); evaluate's scores within DIST_DICE.
+DIST_STEPS = 2
+DIST_TIMED = 5
+DIST_RTOL, DIST_ATOL = 2e-4, 2e-5
+DIST_LOSS_REL, DIST_NORM_REL = 1e-5, 1e-4
+DIST_DICE = 1e-4
+DIST_TIMEOUT = 300
+
+
+def _dist_cfg(data_path: str, run_dir: str):
+    """The ts8_256 recipe for the two-rank checks: full width, fp32
+    compute, the peak rate from the second step on; the packed split with
+    HD95 for evaluate."""
+    import dataclasses
+    from gdkvm_tpu_torch.models.gdkvm import train_model_config
+    cfg = _run_cfg("packed", data_path, run_dir, "off", warmup_iterations=1)
+    cfg.eval_stage.hd95 = True
+    return cfg, dataclasses.replace(train_model_config(cfg.model, 256),
+                                    compute_dtype="float32")
+
+
+def _timed_steps(state, batch, cfg, n: int) -> float:
+    """Mean ms of ``n`` train steps on the host clock, each ended by a
+    synchronize (after one untimed)."""
+    import torch
+    from gdkvm_tpu_torch.train.loop import train_step
+    train_step(state, batch, cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        train_step(state, batch, cfg)
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def _dist_steps(root: str, device, batch, cfg, model_cfg) -> dict:
+    """DIST_STEPS train steps per backward mode from root/weights.pt on
+    ``batch`` (this process's rows), the counts 0 just before and read just
+    after; the parameters go to root; then DIST_TIMED timed steps."""
+    import torch
+    from gdkvm_tpu_torch.parallel import distributed
+    from gdkvm_tpu_torch.train.loop import train_step
+    weights = torch.load(os.path.join(root, "weights.pt"), weights_only=True)
+    out = {}
+    for mode in ("stored", "fused"):
+        os.environ["GDKVM_GDR_BWD"] = mode
+        state = _state(cfg, model_cfg, device, weights)
+        _reset_counts()
+        metrics = [{k: float(v) for k, v in train_step(state, batch, cfg).items()}
+                   for _ in range(DIST_STEPS)]
+        torch.cuda.synchronize()
+        counts = _read_counts()
+        torch.save({k: v.cpu() for k, v in state.model.state_dict().items()},
+                   os.path.join(root, f"params_{mode}_rank{distributed.rank()}"
+                                      f"_of{distributed.world_size()}.pt"))
+        out[mode] = {"metrics": metrics, "counts": counts,
+                     "step_ms": _timed_steps(state, batch, cfg, DIST_TIMED)}
+    os.environ.pop("GDKVM_GDR_BWD")
+    if distributed.in_group():
+        # The step's gradient all-reduce alone: one flat fp32 buffer of
+        # every parameter's gradient.
+        flat = torch.zeros(sum(p.numel() for p in state.opt.params), device=device)
+        distributed.all_reduce_sum([flat])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(DIST_TIMED):
+            distributed.all_reduce_sum([flat])
+        torch.cuda.synchronize()
+        out["all_reduce_ms"] = (time.perf_counter() - t0) / DIST_TIMED * 1e3
+        out["all_reduce_mb"] = flat.numel() * 4 / 2**20
+    return out
+
+
+def _dist_evaluate(root: str, device, cfg, model_cfg) -> dict:
+    """evaluate from root/weights.pt, counts 0 just before, read after."""
+    import torch
+    from gdkvm_tpu_torch.eval.evaluator import evaluate
+    from gdkvm_tpu_torch.models.gdkvm import GDKVM
+    model = GDKVM(model_cfg, device=device)
+    model.load_state_dict(torch.load(os.path.join(root, "weights.pt"), weights_only=True))
+    _reset_counts()
+    with torch.inference_mode():
+        scores = evaluate(cfg, model.eval(), device)
+    torch.cuda.synchronize()
+    return {"scores": scores, "counts": _read_counts()}
+
+
+def _rank_dist(root: str, data_path: str) -> int:
+    """One rank of phase_distributed's two on cuda:0 over gloo (run as
+    ``chip_smoke.py --rank-dist ROOT DATA`` under RANK, WORLD_SIZE,
+    MASTER_ADDR, MASTER_PORT): its rows of the global batch through
+    _dist_steps, then evaluate; writes root/rank{r}.json."""
+    import numpy as np
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from gdkvm_tpu_torch.data.pipeline import Batch
+    from gdkvm_tpu_torch.parallel import distributed
+    from gdkvm_tpu_torch.parallel.mesh import batch_slice
+    device = torch.device("cuda:0")
+    if not distributed.maybe_initialize_distributed(backend="gloo", device=device):
+        raise RuntimeError("--rank-dist: no process group in the environment")
+    rank = distributed.rank()
+    cfg, model_cfg = _dist_cfg(data_path, os.path.join(root, "eval_ranks"))
+    z = np.load(os.path.join(root, "batch.npz"))
+    rows = batch_slice(rank, z["frames"].shape[0])
+    batch = Batch(*(torch.from_numpy(z[k][rows]).to(device)
+                    for k in ("frames", "masks", "valid")))
+    out = {"backend": torch.distributed.get_backend(), "info": distributed.process_info(),
+           "rows": [rows.start, rows.stop], **_dist_steps(root, device, batch, cfg, model_cfg),
+           "eval": _dist_evaluate(root, device, cfg, model_cfg)}
+    with open(os.path.join(root, f"rank{rank}.json"), "w") as fh:
+        json.dump(out, fh)
+    distributed.shutdown()
+    return 0
+
+
+def _rank_cli(argv: list) -> int:
+    """``cli.main(argv)`` as one rank under torchrun (``chip_smoke.py
+    --rank-cli train ...``), so that its launches can be counted: around
+    the ``train`` it calls, the counts are set to 0 and read, and the
+    group's backend and place recorded; printed as a JSON line last."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from gdkvm_tpu_torch import cli
+    from gdkvm_tpu_torch.parallel import distributed
+    from gdkvm_tpu_torch.train import loop
+    real, seen = loop.train, {}
+
+    def counted_train(cfg, **kw):
+        seen.update(backend=torch.distributed.get_backend(), info=distributed.process_info(),
+                    device=str(kw.get("device")))
+        _reset_counts()
+        out = real(cfg, **kw)
+        torch.cuda.synchronize()
+        seen["counts"] = _read_counts()
+        return out
+    loop.train = counted_train
+    rc = cli.main(argv)
+    print(json.dumps({"rank_cli": seen}), flush=True)
+    return rc
+
+
+def _run_ranks(cmd: list, n: int, what: str) -> list:
+    """``cmd`` as ``n`` ranks of a group on localhost (RANK, WORLD_SIZE,
+    MASTER_ADDR, MASTER_PORT; n = 0: one process that sets them itself, a
+    launcher), waited for at most DIST_TIMEOUT s; any that fails ends the
+    run.  → each process's stdout."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = dict(_module_env(), GDKVM_DIST_TIMEOUT=str(DIST_TIMEOUT))
+    envs = [dict(env, RANK=str(r), LOCAL_RANK=str(r), WORLD_SIZE=str(n),
+                 MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port)) for r in range(n)] or [env]
+    procs = [subprocess.Popen(cmd, cwd=REPO, env=e, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for e in envs]
+    try:
+        outs = [p.communicate(timeout=DIST_TIMEOUT) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, (_, err)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"{what}: rank {r} exit code {p.returncode}: {err[-3000:]}")
+    return [o for o, _ in outs]
+
+
+def phase_distributed(device, info: dict, roots: dict, served: dict) -> dict:
+    """Data-parallel training, eval and serving over devices (the
+    distribution main path), on the one card:
+
+    (i) ``python -m torch.distributed.run --standalone --nproc_per_node=1``
+        of ``python -m gdkvm_tpu_torch train --config
+        configs/gdkvm_ts8_256.yaml`` on the packed split: NCCL, one rank,
+        its JSON, log and checkpoint, its launches counted in the rank;
+    (ii) two ranks on cuda:0 over gloo: DIST_STEPS ts8_256 steps at full
+        width, fp32, batch 8 split 4 + 4, in the stored and the fused
+        backward mode, held to one process on the global batch, with each
+        rank's launches counted; the step's time and the gradient
+        all-reduce's;
+    (iii) the same ranks' evaluate against one process;
+    (iv) phase_serve's 8 sessions through a data=2 mesh of [cuda:0, cuda:0]
+        in both forward splits, against the model engine's masks.
+
+    Returns the launches by kernel."""
+    import numpy as np
+    import torch
+    from gdkvm_tpu_torch.parallel.mesh import make_mesh
+    t_phase = time.perf_counter()
+    smi = info["smi"]
+    launches = {"fwd": 0, "residual": 0, "bwd": 0, "chain": 0}
+    tmp = _scratch_dir("dist")
+
+    # (i) torchrun, NCCL, world 1, through the command line.
+    run_dir = os.path.join(tmp, "torchrun")
+    steps, n_val = 4, RUN_CLIPS["packed"][1]
+    t0 = time.perf_counter()
+    out = _run_ranks([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                      "--nproc_per_node=1", os.path.abspath(__file__), "--rank-cli", "train",
+                      "--config", TS8_256, "data.dataset=packed",
+                      f"data_path={roots['packed']}", f"num_iterations={steps}",
+                      "train.log_every=1", f"train.eval_every={steps}",
+                      f"train.checkpoint_every={steps}", "eval_stage.wandb_mode=disabled",
+                      f"runtime.run_dir={run_dir}"], 0, "torchrun train")[0]
+    lines = [json.loads(line) for line in out.strip().splitlines() if line.startswith("{")]
+    final = next(x["final"] for x in lines if "final" in x)
+    seen = next(x["rank_cli"] for x in lines if "rank_cli" in x)
+    want = dict(_ZERO, fwd_kernel=steps + n_val, residual_fwd=steps, stored_bwd=steps)
+    print(f"distributed (i) torchrun train, 1 rank: backend {seen['backend']}, "
+          f"{seen['info']}, device {seen['device']}; counts {seen['counts']}; loss "
+          f"{final['loss']:.4f}, eval Dice fg {final['eval/dice_fg_mean']:.4f}; "
+          f"{time.perf_counter() - t0:.1f} s with the process's start")
+    rows = _jsonl(run_dir)
+    if seen["backend"] != "nccl" or seen["info"]["process_count"] != 1 \
+            or seen["device"] != "cuda:0" or seen["counts"] != want \
+            or [r["step"] for r in rows if "loss" in r] != list(range(1, steps + 1)) \
+            or os.listdir(os.path.join(run_dir, "checkpoints")) != [f"step_{steps:08d}.pt"] \
+            or not all(np.isfinite(v) for v in final.values()):
+        raise AssertionError(f"torchrun train: {seen}, final {final}, expected counts {want}")
+    launches["fwd"] += n_val
+    launches["residual"] += steps
+
+    # (ii), (iii): one process on the global batch, then two ranks.
+    from gdkvm_tpu_torch.models.gdkvm import GDKVM, init_params
+    cfg, model_cfg = _dist_cfg(roots["packed"], os.path.join(tmp, "eval_one"))
+    torch.save(init_params(GDKVM(model_cfg, device=device),
+                           torch.Generator().manual_seed(cfg.train.seed)).state_dict(),
+               os.path.join(tmp, "weights.pt"))
+    batch = _batch(_train_cfg())
+    np.savez(os.path.join(tmp, "batch.npz"), frames=batch.frames, masks=batch.masks,
+             valid=batch.valid)
+    from gdkvm_tpu_torch.data.pipeline import Batch
+    one = _dist_steps(tmp, device, Batch(*(torch.from_numpy(np.asarray(x)).to(device)
+                                           for x in (batch.frames, batch.masks, batch.valid))),
+                      cfg, model_cfg)
+    one_eval = _dist_evaluate(tmp, device, cfg, model_cfg)
+    t0 = time.perf_counter()
+    _run_ranks([sys.executable, os.path.abspath(__file__), "--rank-dist", tmp,
+                roots["packed"]], 2, "two ranks on cuda:0")
+    ranks_s = time.perf_counter() - t0
+    ranks = [json.load(open(os.path.join(tmp, f"rank{r}.json"))) for r in range(2)]
+    for mode in ("stored", "fused"):
+        want = dict(_ZERO, fwd_kernel=DIST_STEPS, residual_fwd=DIST_STEPS,
+                    **{"stored_bwd" if mode == "stored" else "bwd_kernel": DIST_STEPS})
+        ref = torch.load(os.path.join(tmp, f"params_{mode}_rank0_of1.pt"), weights_only=True)
+        worst = {}
+        for r, rk in enumerate(ranks):
+            if rk["backend"] != "gloo" or rk["info"]["process_count"] != 2 \
+                    or rk["rows"] != [4 * r, 4 * r + 4] or rk[mode]["counts"] != want:
+                raise AssertionError(f"rank {r} [{mode}]: {rk['backend']} {rk['info']} rows "
+                                     f"{rk['rows']} counts {rk[mode]['counts']}, expected {want}")
+            got = torch.load(os.path.join(tmp, f"params_{mode}_rank{r}_of2.pt"),
+                             weights_only=True)
+            for name, w in ref.items():
+                excess = ((got[name] - w).abs() - DIST_RTOL * w.abs()).max()
+                worst[name] = max(worst.get(name, -1.0), float(excess))
+            for s, (m1, m2) in enumerate(zip(one[mode]["metrics"], rk[mode]["metrics"])):
+                d_loss = abs(m2["loss"] - m1["loss"]) / abs(m1["loss"])
+                d_norm = abs(m2["grad_norm"] - m1["grad_norm"]) / abs(m1["grad_norm"])
+                if d_loss > DIST_LOSS_REL or d_norm > DIST_NORM_REL \
+                        or m2["batch_checksum"] != m1["batch_checksum"]:
+                    raise AssertionError(f"rank {r} [{mode}] step {s + 1}: {m2} against {m1}")
+        name = max(worst, key=worst.get)
+        print(f"distributed (ii) [{mode}]: 2 ranks x rows 4 of batch 8 on cuda:0 over gloo; "
+              f"counts per rank {ranks[0][mode]['counts']}; losses "
+              + " ".join(f"{m['loss']:.7f}" for m in ranks[0][mode]["metrics"])
+              + " (one process " + " ".join(f"{m['loss']:.7f}" for m in one[mode]["metrics"])
+              + f"); worst max(|Δ| - {DIST_RTOL:g}|p|) over the parameters {worst[name]:.3e} "
+              f"({name}; bar {DIST_ATOL:g})")
+        if worst[name] > DIST_ATOL:
+            raise AssertionError(f"[{mode}] two ranks differ from one process at {name}")
+        launches["residual"] += 2 * DIST_STEPS
+        launches["bwd"] += 2 * DIST_STEPS if mode == "fused" else 0
+    share = [rk["all_reduce_ms"] / rk["stored"]["step_ms"] for rk in ranks]
+    print(f"distributed (ii) times on {smi}: step ms per rank, two ranks at once on the "
+          "card: " + ", ".join(f"{m} " + "/".join(f"{rk[m]['step_ms']:.2f}" for rk in ranks)
+                               for m in ("stored", "fused"))
+          + "; one process on batch 8: " + ", ".join(f"{m} {one[m]['step_ms']:.2f}"
+                                                     for m in ("stored", "fused"))
+          + f"; gloo all-reduce of the {ranks[0]['all_reduce_mb']:.1f} MiB gradient "
+          + "/".join(f"{rk['all_reduce_ms']:.2f}" for rk in ranks)
+          + " ms, " + "/".join(f"{x:.3f}" for x in share) + " of a stored step; "
+          f"ranks' processes {ranks_s:.1f} s")
+    want_eval = dict(_ZERO, fwd_kernel=n_val // 2)
+    for r, rk in enumerate(ranks):
+        scores = rk["eval"]["scores"]
+        diff = max(abs(scores[k] - v) for k, v in one_eval["scores"].items())
+        if rk["eval"]["counts"] != want_eval or set(scores) != set(one_eval["scores"]) \
+                or scores["frames"] != one_eval["scores"]["frames"] or diff > DIST_DICE:
+            raise AssertionError(f"rank {r} evaluate {rk['eval']} against one process "
+                                 f"{one_eval}")
+    print(f"distributed (iii) evaluate, 2 ranks: {json.dumps(ranks[0]['eval']['scores'])}; "
+          f"counts per rank {ranks[0]['eval']['counts']}; one process "
+          f"{one_eval['counts']}; worst |Δ| {diff:.2e}")
+    launches["fwd"] += n_val
+
+    # (iv) mesh serving: two groups of 4 slots on the one card.  A group's
+    # call is a batch of 4: its masks must equal, on every pixel, those of a
+    # one-device engine of 4 slots (the same sessions in two rounds of 4).
+    # Against phase_serve's 8-slot engine, a batch of 8 a call, bf16 kernels
+    # chosen by batch size round differently: held to phase_serve's bar for
+    # what batching loses.
+    from gdkvm_tpu_torch.serve import ServeClient
+    mesh = make_mesh(data=2, devices=[device, device])
+    videos = _serve_videos()
+    per_group = dict(SERVE, streams=SERVE["streams"] // 2)
+    for mode in ("monolith", "chain"):
+        os.environ["GDKVM_GDR_FWD"] = mode
+        with _served(served["model"], mesh=mesh) as (engine, addr):
+            _reset_counts()
+            ticks0 = engine.ticks
+            with ThreadPoolExecutor(max_workers=len(videos)) as pool:
+                masks = list(pool.map(lambda v: _one_session(addr, v), videos))
+            ticks = engine.ticks - ticks0
+            counts = _read_counts()
+            health = ServeClient(*addr).health()
+        key = "chain_kernel" if mode == "chain" else "fwd_kernel"
+        from gdkvm_tpu_torch.serve import BatchingEngine
+        engine4 = BatchingEngine(model=served["model"], **per_group)
+        try:
+            same_batch = []
+            for lo in (0, per_group["streams"]):
+                group = videos[lo:lo + per_group["streams"]]
+                sids = [engine4.open_session()["session"] for _ in group]
+                with ThreadPoolExecutor(max_workers=len(group)) as pool:
+                    same_batch += list(pool.map(engine4.infer, sids, group))
+                for sid in sids:
+                    engine4.close_session(sid)
+        finally:
+            engine4.close()
+        exact = [float((a == b).mean()) for a, b in zip(masks, same_batch)]
+        agree = [float((a == b).mean()) for a, b in zip(masks, served["masks"][mode])]
+        print(f"distributed (iv) mesh serving [{mode}]: mesh {health['mesh']}, {ticks} ticks, "
+              f"counts {counts}; masks per session against a one-device engine of 4 slots: "
+              + " ".join(f"{x:.6f}" for x in exact) + "; against phase_serve's 8-slot engine: "
+              + " ".join(f"{x:.6f}" for x in agree) + f" (bar {served['bf16_bar']:.6f})")
+        if health["mesh"] != {"data": 2, "model": 1} or ticks < 1 \
+                or counts != dict(_ZERO, **{key: 2 * ticks}) or min(exact) < 1.0 \
+                or min(agree) < served["bf16_bar"]:
+            raise AssertionError(f"mesh serving [{mode}]: counts {counts} for {ticks} ticks, "
+                                 f"agreement {exact}, {agree}")
+        launches["chain" if mode == "chain" else "fwd"] += counts[key]
+    os.environ.pop("GDKVM_GDR_FWD")
+    print(f"phase_distributed: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def _profiled_ms(fn, iters: int = 20, match: str | None = None) -> float | None:
     """Mean device time of a call of ``fn()`` (ms) as torch.profiler traces
     it over ``iters`` calls after 3: the kernels whose name holds ``match``
@@ -2443,6 +2800,7 @@ def main() -> int:
     gdn2 = timed(phase_gdn2, device)
     stream_eval_launches = timed(phase_stream_eval, device)
     cli_launches = timed(phase_cli, device, info, run["roots"])
+    dist = timed(phase_distributed, device, info, run["roots"], serve)
     fixed = timed(phase_train_times, device)
     print("training steps/s: " + ", ".join(
         f"{kind} device_cache={cache} {r:.3f}" for (kind, cache), r in run["rates"].items())
@@ -2459,24 +2817,26 @@ def main() -> int:
          "replaces": "gdkvm_tpu/ops/gdr_pallas.py:513",
          "launches": stream["launches"] + serve["fwd_launches"] + export["fwd"]
          + train_launches["fwd"] + run["launches"]["fwd"] + gdn2["fwd"]
-         + stream_eval_launches + cli_launches["fwd"],
+         + stream_eval_launches + cli_launches["fwd"] + dist["fwd"],
          "max_abs_err": err_fwd,
          **fwd_times, "library_ms": None},
         {"name": "gdr_fwd_residuals", "route": "cuda", "source": src + "gdr_fwd.cu",
          "replaces": "gdkvm_tpu/ops/gdr_pallas.py:513",
          "launches": train_launches["residual"] + run["launches"]["residual"]
-         + gdn2["residual"] + cli_launches["residual"], "max_abs_err": err_res,
+         + gdn2["residual"] + cli_launches["residual"] + dist["residual"],
+         "max_abs_err": err_res,
          **times["fwd"], "library_ms": None},
         {"name": "gdr_bwd", "route": "cuda", "source": src + "gdr_bwd.cu",
          "replaces": "gdkvm_tpu/ops/gdr_pallas.py:724",
-         "launches": train_launches["bwd"] + gdn2["bwd"] + cli_launches["bwd"],
+         "launches": train_launches["bwd"] + gdn2["bwd"] + cli_launches["bwd"]
+         + dist["bwd"],
          "max_abs_err": err_bwd,
          **{k: v for k, v in times["bwd"].items() if k != "stored_ms"},
          "library_ms": None},
         {"name": "gdr_chain", "route": "cuda", "source": src + "gdr_chain.cuh",
          "replaces": "gdkvm_tpu/ops/gdr_pallas.py:585",
          "launches": serve["chain_launches"] + export["chain"]
-         + chain_train_launches + cli_launches["chain"],
+         + chain_train_launches + cli_launches["chain"] + dist["chain"],
          "max_abs_err": err_chain, **chain_times["serve"]["kernel"],
          "library_ms": None},
     ]}))
@@ -2488,4 +2848,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank-cli"]:          # a rank of phase_distributed
+        sys.exit(_rank_cli(sys.argv[2:]))
+    if sys.argv[1:2] == ["--rank-dist"]:
+        sys.exit(_rank_dist(*sys.argv[2:]))
     sys.exit(main())

@@ -14,22 +14,32 @@ its residual-free forward.
 --artifact`` and ``infer --artifact`` load it on ``--device``, which must be
 of that type.
 
+``train`` and ``eval`` join the process group that ``torchrun`` (or the
+JAX package's ``GDKVM_*`` variables) describes, one process per card
+(parallel/distributed.py): ``torchrun --nproc_per_node=N -m gdkvm_tpu_torch
+train --config ...`` trains on N cards, each rank on ``cuda:{LOCAL_RANK}``
+(``--device cpu``: N CPU processes over gloo).  Only rank 0 prints and
+writes.  ``serve --mesh auto|DxM`` splits the slot pool over D devices in
+one process: every visible card for ``--device cuda``, D replicas on the
+one device otherwise.
+
 Not ported, each raising ``NotImplementedError`` with its item of ROADMAP
-Queue 1: ``quant`` and every ``--quant-scales`` (item 9), ``--mesh`` and a
-``torchrun`` environment with ``WORLD_SIZE`` > 1 under ``train`` (item 7),
-``bench --mode all`` (items 4 and 9).
+Queue 1: ``quant`` and every ``--quant-scales`` (item 9), head parallelism
+(``parallel.model_axis`` > 1, ``--mesh Dx2``; item 7), ``bench --mode all``
+(items 4 and 9).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
 
 _NOT_PORTED = {
     4: "item 4: the port's benchmark entry",
-    7: "item 7: distribution",
+    7: "item 7: head parallelism",
     9: "item 9: ops/quant.py, eval/regression.py",
 }
 
@@ -60,6 +70,27 @@ def _device(name: str):
         raise RuntimeError(f"--device {name}: no CUDA device; pass --device cpu "
                            f"to run on the CPU")
     return device
+
+
+@contextlib.contextmanager
+def _process_group(device):
+    """Join the process group the environment describes (a no-op without
+    one) → this rank's device (``device``, or ``cuda:{LOCAL_RANK}`` for an
+    index-less card); the group is left on exit."""
+    from gdkvm_tpu_torch.parallel import distributed
+    joined = distributed.maybe_initialize_distributed(device=device)
+    try:
+        yield distributed.device() if joined else device
+    finally:
+        if joined:
+            distributed.shutdown()
+
+
+def _print_main(line: str) -> None:
+    """Print on rank 0 alone (every rank holds the same result)."""
+    from gdkvm_tpu_torch.parallel import distributed
+    if distributed.is_main_process():
+        print(line, flush=True)
 
 
 def _load_model(cfg, checkpoint, device, action: str, require: bool = False):
@@ -100,13 +131,10 @@ def cmd_train(argv) -> int:
     p.add_argument("--config", default=None, help="YAML config path")
     _add_device(p)
     args = p.parse_args(flags)
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise _not_ported(f"training under WORLD_SIZE="
-                          f"{os.environ['WORLD_SIZE']} (every process would "
-                          f"train its own copy)", 7)
     cfg = load_config(args.config, overrides)
-    metrics = train(cfg, device=_device(args.device))
-    print(json.dumps({"final": metrics}))
+    with _process_group(_device(args.device)) as device:
+        metrics = train(cfg, device=device)
+        _print_main(json.dumps({"final": metrics}))
     return 0
 
 
@@ -123,12 +151,12 @@ def cmd_eval(argv) -> int:
     _add_device(p)
     args = p.parse_args(flags)
     cfg = load_config(args.config, overrides)
-    device = _device(args.device)
-    model, step = _load_model(cfg, args.checkpoint, device, "scoring",
-                              require=True)
-    with torch.inference_mode():
-        metrics = evaluate(cfg, model, device, step=step)
-    print(json.dumps(metrics))
+    with _process_group(_device(args.device)) as device:
+        model, step = _load_model(cfg, args.checkpoint, device, "scoring",
+                                  require=True)
+        with torch.inference_mode():
+            metrics = evaluate(cfg, model, device, step=step)
+        _print_main(json.dumps(metrics))
     return 0
 
 
@@ -558,6 +586,19 @@ def cmd_serve_check(argv) -> int:
     return 0
 
 
+def _serving_mesh(device, data: int, model: int):
+    """The mesh of ``serve --mesh``: over every visible card for an
+    index-less CUDA device, else ``data`` replicas on ``device`` (one for
+    data = -1)."""
+    import torch
+    from gdkvm_tpu_torch.parallel.mesh import make_mesh
+    if device.type == "cuda" and device.index is None:
+        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    else:
+        devices = [device] * max(data, 1)
+    return make_mesh(data, model, devices)
+
+
 def cmd_serve(argv) -> int:
     """Run the multi-stream streaming-segmentation HTTP server (serve.py: a
     session per stream, the GDR state held server-side, one multi-stream
@@ -593,20 +634,42 @@ def cmd_serve(argv) -> int:
     p.add_argument("--quant-scales", default=None,
                    help="W8A8 scales JSON (not ported)")
     p.add_argument("--mesh", default=None,
-                   help="shard the slot pool over devices (not ported)")
+                   help="split the slot pool over devices: 'auto' (config "
+                        "parallel.{data_axis,model_axis}) or 'DxM', e.g. 2x1; "
+                        "streams must divide by D (checkpoint path only; "
+                        "M > 1 is not ported)")
     _add_device(p)
     args = p.parse_args(flags)
+    cfg = load_config(args.config, overrides)
+    mesh_shape = None
     if args.mesh:
-        raise _not_ported("--mesh (serving over several devices)", 7)
+        if args.artifact:
+            print("error: --mesh applies to the checkpoint path; an artifact "
+                  "is lowered for one device", file=sys.stderr)
+            return 2
+        if args.mesh == "auto":
+            mesh_shape = (cfg.parallel.data_axis, cfg.parallel.model_axis)
+        else:
+            try:
+                d, m = (int(x) for x in args.mesh.lower().split("x"))
+            except ValueError:
+                print(f"error: --mesh must be 'auto' or 'DxM', got "
+                      f"{args.mesh!r}", file=sys.stderr)
+                return 2
+            mesh_shape = (d, m)
+        if mesh_shape[1] != 1:
+            raise _not_ported(f"--mesh {args.mesh} (model axis "
+                              f"{mesh_shape[1]}: the LKVA heads over devices)", 7)
     if args.quant_scales:
         raise _not_ported("--quant-scales (W8A8 serving)", 9)
-    cfg = load_config(args.config, overrides)
     streams = args.streams or max(cfg.eval_stage.streams, 1)
     chunk = args.chunk or cfg.eval_stage.stream_chunk
     device = _device(args.device)
     ekw = dict(streams=streams, chunk=chunk,
                max_inflight_mb=args.max_inflight_mb, warmup=not args.no_warmup,
                pack_masks=not args.no_pack, session_ttl=args.session_ttl or None)
+    if mesh_shape is not None:
+        ekw["mesh"] = _serving_mesh(device, *mesh_shape)
     if args.artifact:
         from gdkvm_tpu_torch.io.export import load_artifact
         engine = BatchingEngine(artifact=load_artifact(args.artifact, device),

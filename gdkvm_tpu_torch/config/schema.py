@@ -121,8 +121,13 @@ class EvalStageConfig:
 
 @dataclass
 class ParallelConfig:
-    """Device layout.  The port runs on one device: anything else raises in
-    ``train`` until distribution is ported."""
+    """Device layout.  ``data_axis`` is the data-parallel width: in training
+    and eval the ranks of the process group (parallel/distributed.py, one
+    process per device), where a value other than -1 must equal the world
+    size and the global ``train.batch_size`` must split evenly over it
+    (:func:`data_parallel_size`); under ``serve --mesh auto`` the devices
+    the slot pool is split over.  ``model_axis`` > 1 (the LKVA heads
+    sharded over devices) is not ported and raises."""
     data_axis: int = -1                # -1 = all remaining devices
     model_axis: int = 1
     donate_state: bool = True          # unused here: no buffer donation in PyTorch
@@ -167,6 +172,23 @@ class Config:
             self.train.learning_rate = self.learning_rate
         if self.num_iterations is not None:
             self.train.num_iterations = self.num_iterations
+
+
+def data_parallel_size(cfg: Config, world: int) -> int:
+    """The data axis of a run over ``world`` ranks, checked: ``model_axis``
+    must be 1, ``data_axis`` -1 or ``world``, and the global batch must
+    split evenly over the ranks."""
+    p = cfg.parallel
+    if p.model_axis != 1:
+        from gdkvm_tpu_torch.parallel.mesh import head_parallel_error
+        raise head_parallel_error(f"parallel.model_axis={p.model_axis}")
+    if p.data_axis not in (-1, world):
+        raise ValueError(f"parallel.data_axis={p.data_axis}: a run of {world} "
+                         f"process(es) has a data axis of {world} (or -1)")
+    if cfg.train.batch_size % world:
+        raise ValueError(f"train.batch_size={cfg.train.batch_size} (global) does "
+                         f"not split over {world} ranks")
+    return world
 
 
 def _from_dict(cls, d: Dict[str, Any]):

@@ -108,7 +108,8 @@ def batch_iterator(dataset, batch_size: int, *, shuffle: bool = True,
                    augment: bool = False, occlude_prob: float = 0.0,
                    seed: int = 0, num_workers: int = 4,
                    drop_last: bool = True, loop: bool = True,
-                   start_step: int = 0) -> Iterator[Batch]:
+                   start_step: int = 0,
+                   shard: Tuple[int, int] = (0, 1)) -> Iterator[Batch]:
     """Yield host batches (numpy) forever (``loop``) or for one epoch.
 
     Every draw comes from a generator seeded by ``(seed, epoch)`` (the
@@ -119,6 +120,11 @@ def batch_iterator(dataset, batch_size: int, *, shuffle: bool = True,
     the batches an unbroken run would have seen.  Clips load in a pool of
     ``num_workers`` threads; a dataset with ``gather`` (the packed format)
     loads a whole batch in one call.
+
+    ``shard=(r, W)``: yield only rows [r·n/W, (r+1)·n/W) of each batch of n
+    (a data-parallel rank's share), loading only those clips; every draw is
+    made as for the whole batch, so the W shards put together are the
+    unsharded batch.
     """
     pool = ThreadPoolExecutor(max_workers=max(num_workers, 1))
     n = len(dataset)
@@ -152,13 +158,15 @@ def batch_iterator(dataset, batch_size: int, *, shuffle: bool = True,
                     step += 1
                     continue
                 step += 1
+                rows = range(len(idxs) * shard[0] // shard[1],
+                             len(idxs) * (shard[0] + 1) // shard[1])
                 if has_gather:
                     yield _gathered(dataset, idxs, augment, occlude_prob,
-                                    (seed, epoch, bi))
+                                    (seed, epoch, bi), rows)
                     continue
                 items = list(pool.map(load, [
-                    (int(idx), np.random.default_rng((seed, epoch, bi, j)))
-                    for j, idx in enumerate(idxs)]))
+                    (int(idxs[j]), np.random.default_rng((seed, epoch, bi, j)))
+                    for j in rows]))
                 yield Batch(frames=np.stack([it[0] for it in items]),
                             masks=np.stack([it[1] for it in items]),
                             valid=np.stack([it[2] for it in items]))
@@ -170,27 +178,28 @@ def batch_iterator(dataset, batch_size: int, *, shuffle: bool = True,
 
 
 def _gathered(dataset, idxs: np.ndarray, augment: bool, occlude_prob: float,
-              key: Tuple[int, int, int]) -> Batch:
-    """One batch through ``dataset.gather``: the gather flips (without the
-    GIL in the native library); gain and gamma apply here as a 256-entry
-    uint8 table per clip, one ``take`` and no per-pixel power."""
+              key: Tuple[int, int, int], rows: range) -> Batch:
+    """The ``rows`` of one batch through ``dataset.gather``: the gather
+    flips (without the GIL in the native library); gain and gamma apply
+    here as a 256-entry uint8 table per clip, one ``take`` and no per-pixel
+    power."""
     brng = np.random.default_rng(key)
-    flips = ((brng.random(len(idxs)) < 0.5).astype(np.uint8)
+    flips = ((brng.random(len(idxs)) < 0.5).astype(np.uint8)[rows.start:rows.stop]
              if augment else None)
-    frames, masks, valid = dataset.gather(idxs, flips)
+    frames, masks, valid = dataset.gather(idxs[rows.start:rows.stop], flips)
     if augment:
-        for j in range(frames.shape[0]):
+        for i, j in enumerate(rows):
             crng = np.random.default_rng((*key, j, 1))
             if crng.random() < 0.5:
                 gain = crng.uniform(0.8, 1.25)
                 gamma = crng.uniform(0.8, 1.25)
                 lut = (np.clip(gain * (np.arange(256) / 255.0) ** gamma,
                                0, 1) * 255).astype(np.uint8)
-                frames[j] = lut[frames[j]]
+                frames[i] = lut[frames[i]]
         if occlude_prob > 0:
-            for j in range(frames.shape[0]):
-                frames[j] = _occlude(np.random.default_rng((*key, j)),
-                                     frames[j], occlude_prob)
+            for i, j in enumerate(rows):
+                frames[i] = _occlude(np.random.default_rng((*key, j)),
+                                     frames[i], occlude_prob)
     return Batch(frames=frames, masks=masks, valid=valid)
 
 

@@ -1,11 +1,18 @@
 """Eval stage of a training run: the val split's Dice, overlay PNGs and,
-on request, HD95 (port of gdkvm_tpu/eval/evaluator.py on one device).
+on request, HD95 (port of gdkvm_tpu/eval/evaluator.py).
 
 The val split goes once through ``batch_iterator(loop=False,
 drop_last=False)`` and the prefetcher; each batch runs forward under
 ``torch.inference_mode()`` (entered here, so a caller in grad mode, like
 the training loop, gets its graph back afterwards), Dice partial sums are
 added on the device and fetched once at the end of the pass.
+
+In a process group (parallel/distributed.py) the clips are split over the
+ranks as the JAX package splits them over its ``data`` axis: each eval
+batch holds a multiple of the world size, each rank runs its rows, the
+Dice sums are summed over the ranks and the HD95 values and the overlays'
+frames are gathered (``all_gather_object``); rank 0 writes the overlays.
+Every rank returns the same scores.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ from gdkvm_tpu_torch.data.pipeline import (batch_iterator, make_dataset,
 from gdkvm_tpu_torch.eval import metrics as M
 from gdkvm_tpu_torch.eval.vis import save_vis
 from gdkvm_tpu_torch.models.gdkvm import GDKVM
+from gdkvm_tpu_torch.parallel import distributed
 from gdkvm_tpu_torch.utils.optional import has_pil
 
 
@@ -48,16 +56,20 @@ def evaluate(cfg: Config, model: GDKVM, device: torch.device | str,
         warnings.warn(msg, stacklevel=2)
         return {}
 
-    bs = max(cfg.eval_stage.batch_size, 1)
+    # The eval batch tiles the data axis, and a ragged last batch that does
+    # not split over the ranks is dropped, as the JAX package drops it.
+    world, rank = distributed.world_size(), distributed.rank()
+    bs = max(cfg.eval_stage.batch_size, world) // world * world
+    drop_tail = (len(dataset) % bs) % world != 0
     hd_on = cfg.eval_stage.hd95
     vis_budget = cfg.eval_stage.num_vis if has_pil() else 0
     vis_dir = os.path.join(cfg.runtime.run_dir, "vis")
 
     it = batch_iterator(dataset, bs, shuffle=False, augment=False,
-                        drop_last=False, loop=False,
-                        num_workers=cfg.data.num_workers)
+                        drop_last=drop_tail, loop=False,
+                        num_workers=cfg.data.num_workers, shard=(rank, world))
     acc = None
-    vis_jobs: List[tuple] = []     # (frames, masks, mid-frame preds) on the device
+    vis_jobs: List[tuple] = []     # mid frames, their masks and preds, on the device
     hd_jobs: List[tuple] = []      # (preds, masks, valid) on the host
     with torch.inference_mode():
         for batch in prefetch_to_device(it, size=2, device=device):
@@ -67,7 +79,8 @@ def evaluate(cfg: Config, model: GDKVM, device: torch.device | str,
             acc = part if acc is None else M.dice_merge(acc, part)
             t_mid = pred.shape[1] // 2
             if len(vis_jobs) * bs < vis_budget:
-                vis_jobs.append((batch.frames, batch.masks, pred[:, t_mid]))
+                vis_jobs.append((batch.frames[:, t_mid], batch.masks[:, t_mid],
+                                 pred[:, t_mid]))
             if hd_on:
                 # Fetched per batch, so the predictions of a large val
                 # split do not pile up on the device.
@@ -75,22 +88,30 @@ def evaluate(cfg: Config, model: GDKVM, device: torch.device | str,
                                      (pred.to(torch.uint8), batch.masks, batch.valid)))
     if acc is None:
         return {}
+    acc = dict(zip(acc, distributed.all_reduce_sum(list(acc.values()))))
     out = M.dice_finalize(acc)
 
+    # Overlays of the first clips of the global order, written by rank 0.
+    vis_jobs = [tuple(x.cpu().numpy() for x in job) for job in vis_jobs]
+    if world > 1:
+        shards = [None] * world
+        torch.distributed.all_gather_object(shards, vis_jobs)
+        vis_jobs = [tuple(np.concatenate(parts) for parts in zip(*jobs))
+                    for jobs in zip(*shards)]
     vis_saved = 0
-    for frames_d, masks_d, preds_d in vis_jobs:
-        frames_h, masks_h, preds_h = (x.cpu().numpy() for x in
-                                      (frames_d, masks_d, preds_d))
-        t_mid = frames_h.shape[1] // 2
+    for frames_h, masks_h, preds_h in (vis_jobs if rank == 0 else ()):
         for i in range(min(frames_h.shape[0], vis_budget - vis_saved)):
-            save_vis(vis_dir, step, vis_saved, frames_h[i, t_mid],
-                     preds_h[i], masks_h[i, t_mid])
+            save_vis(vis_dir, step, vis_saved, frames_h[i], preds_h[i], masks_h[i])
             vis_saved += 1
         if vis_saved >= vis_budget:
             break
 
     if hd_on and hd_jobs:
-        # HD95 on the host over all valid frames.
+        # HD95 on the host over all valid frames, every rank's.
+        if world > 1:
+            shards = [None] * world
+            torch.distributed.all_gather_object(shards, hd_jobs)
+            hd_jobs = [job for jobs in shards for job in jobs]
         per_class: Dict[str, list] = {}
         n_inf = 0
         n_pairs = 0          # (frame, class) pairs where the class exists

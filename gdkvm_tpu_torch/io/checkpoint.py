@@ -14,6 +14,11 @@ the file on a background thread (``wait`` joins it), to a temporary name
 that ``os.replace`` then moves into place, so a killed run leaves no
 half-written checkpoint.  Files load with ``torch.load(weights_only=True)``:
 they hold tensors, numbers, lists and dicts only.
+
+In a process group every rank holds the same state, so rank 0 alone writes;
+it waits for the file, and every rank then meets the others at a barrier, so
+no rank runs ahead of a checkpoint that is not yet on disk.  Every rank
+restores.
 """
 
 from __future__ import annotations
@@ -24,6 +29,8 @@ import threading
 from typing import Any, Dict, List, Optional
 
 import torch
+
+from gdkvm_tpu_torch.parallel import distributed
 
 _NAME = re.compile(r"^step_(\d+)\.pt$")
 
@@ -66,7 +73,8 @@ class CheckpointManager:
 
     def __init__(self, directory: str, max_to_keep: int = 3) -> None:
         self._dir = os.path.abspath(directory)
-        os.makedirs(self._dir, exist_ok=True)
+        if distributed.is_main_process():
+            os.makedirs(self._dir, exist_ok=True)
         self._max_to_keep = max_to_keep
         self._pending: List[threading.Thread] = []
         self._error: Optional[BaseException] = None
@@ -75,13 +83,25 @@ class CheckpointManager:
         return os.path.join(self._dir, f"step_{step:08d}.pt")
 
     def all_steps(self) -> List[int]:
+        if not os.path.isdir(self._dir):       # another rank makes it
+            return []
         return sorted(int(m.group(1)) for m in
                       (_NAME.match(f) for f in os.listdir(self._dir)) if m)
 
     def save(self, step: int, state, force: bool = False) -> None:
         """Write ``state`` as step ``step``; an existing checkpoint of that
-        step is kept unless ``force``."""
+        step is kept unless ``force``.  In a process group: rank 0 writes
+        and waits for the file, then every rank meets at a barrier."""
         self.wait()
+        if distributed.world_size() > 1:
+            if distributed.is_main_process():
+                self._save(step, state, force)
+                self.wait()
+            distributed.barrier(f"checkpoint step {step}")
+            return
+        self._save(step, state, force)
+
+    def _save(self, step: int, state, force: bool) -> None:
         if os.path.exists(self._path(step)) and not force:
             return
         tree = state_tree(state)

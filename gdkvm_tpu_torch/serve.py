@@ -1,6 +1,6 @@
 """Serving: a slot-pool batching engine with a stdlib HTTP front end and
-client (port of gdkvm_tpu/serve.py on one device: the live model, or an
-exported artifact of io/export.py).
+client (port of gdkvm_tpu/serve.py: the live model on one device or split
+over a mesh of devices, or an exported artifact of io/export.py).
 
 Design:
   - A fixed pool of ``streams`` slots.  Every tick advances all slots in one
@@ -25,10 +25,16 @@ Design:
   - Backpressure: in-flight request bytes are bounded (``max_inflight_mb``);
     beyond the bound ``infer`` raises :class:`EngineOverloaded` (HTTP 429).
   - Idle sessions are reclaimed after ``session_ttl`` seconds.
+  - Over a mesh (``mesh=``, parallel/mesh.py, ``data`` = D devices) the S
+    slots split into D groups of S/D, one group per device of the mesh,
+    each with the model's replica on that device (one replica a distinct
+    device) and its own state.  A request is staged on its slot's device; a
+    tick launches every group's step, then gathers each group's masks.
+    Slots never interact, so the masks are the one-device engine's.
 
 The engine runs on its model's device (an artifact's: where it was
-exported) and never moves work elsewhere: a CUDA model runs on its card, a
-CPU model on the CPU.  Grad mode is
+exported; a mesh's devices) and never moves work elsewhere: a CUDA model
+runs on its card, a CPU model on the CPU.  Grad mode is
 thread-local in PyTorch, so the engine's threads enter
 ``torch.inference_mode()`` themselves: the GDR runs its residual-free
 forward whatever the caller's mode.
@@ -42,6 +48,7 @@ Endpoints:
 
 from __future__ import annotations
 
+import copy
 import io
 import json
 import re
@@ -98,23 +105,59 @@ class _Piece:
         self.depth: int = 0
 
 
+def _model_step(model: GDKVM):
+    """The engine's step around ``model``: (frames_u8, mem, seen) →
+    (logits, mem, seen)."""
+    def step(frames_u8, mem, seen):
+        logits, st = model(frames_u8.to(torch.float32) / 255.0,
+                           StreamState(mem=mem, frames_seen=seen))
+        return logits, st.mem, st.frames_seen
+    return step
+
+
+class _Group:
+    """One device's share of the slot pool: slots [lo, hi), the step of the
+    model's replica there, and the slots' state."""
+
+    def __init__(self, lo: int, hi: int, device: torch.device, raw_step) -> None:
+        self.lo, self.hi, self.device, self.raw_step = lo, hi, device, raw_step
+        self.mem: Optional[Tensor] = None
+        self.seen: Optional[Tensor] = None
+        self.zero: Optional[Tensor] = None
+
+
 class BatchingEngine:
     """Slot-pool batching engine around one multi-stream step a tick: the
     model's, or an exported artifact's (``artifact``: its directory or a
     loaded :class:`~gdkvm_tpu_torch.io.export.ServingModel`, exported for
-    batch ``streams`` and chunk ``chunk``; the image size is its own)."""
+    batch ``streams`` and chunk ``chunk``; the image size is its own).
+    ``mesh`` (a :class:`~gdkvm_tpu_torch.parallel.mesh.Mesh` of D devices,
+    model path only) splits the slots into D groups, one per device;
+    ``streams`` must divide by D."""
 
     def __init__(self, *, model: Optional[GDKVM] = None, streams: int = 4,
                  chunk: int = 16, image_size: int = 112, warmup: bool = True,
                  max_inflight_mb: float = 256.0, pack_masks: bool = True,
                  session_ttl: Optional[float] = None, mesh=None,
                  artifact: Optional[str | ServingModel] = None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh serving is not ported (ROADMAP Queue 1, item 7: "
-                "distribution)")
         self.streams = streams
         self.chunk = chunk
+        self._mesh = mesh
+        if mesh is not None:
+            if artifact is not None:
+                raise ValueError(
+                    "mesh serving requires the model path — an exported "
+                    "artifact is already lowered for one device")
+            if mesh.model != 1:
+                from gdkvm_tpu_torch.parallel.mesh import head_parallel_error
+                raise head_parallel_error(f"serving over a {mesh.data}x{mesh.model} mesh")
+            if mesh.distributed:
+                raise ValueError("mesh serving drives every device from one process; "
+                                 "a mesh over a process group has one")
+            if streams % mesh.data:
+                raise ValueError(
+                    f"streams={streams} must be divisible by the mesh "
+                    f"data axis ({mesh.data}) so every device owns whole slots")
         if artifact is not None:
             sm = load_artifact(artifact) if isinstance(artifact, str) else artifact
             sig = sm.meta["signature"]
@@ -124,23 +167,25 @@ class BatchingEngine:
                     f"chunk={sig['frames_u8'][1]}; serve requested "
                     f"streams={streams} chunk={chunk} — re-export with "
                     f"--batch/--chunk matching the serve config")
-            self.device = sm.device
             self.image_size, self.in_channels = sig["frames_u8"][2], sig["frames_u8"][4]
             self.num_classes = sm.meta["num_classes"]
             mem_shape = tuple(sig["mem"])
-            self._raw_step = sm.step
+            self._groups = [_Group(0, streams, sm.device, sm.step)]
         else:
             cfg = model.cfg
-            self.device = model_device(model)
             self.image_size, self.in_channels = image_size, cfg.in_channels
             self.num_classes = cfg.num_classes
             mem_shape = (streams, cfg.num_heads, cfg.head_dim_k, cfg.head_dim_v)
-
-            def model_step(frames_u8, mem, seen):
-                logits, st = model(frames_u8.to(torch.float32) / 255.0,
-                                   StreamState(mem=mem, frames_seen=seen))
-                return logits, st.mem, st.frames_seen
-            self._raw_step = model_step
+            devices = mesh.devices if mesh is not None else (model_device(model),)
+            per = streams // len(devices)
+            replicas: Dict[torch.device, GDKVM] = {model_device(model): model}
+            self._groups = []
+            for g, dev in enumerate(devices):
+                if dev not in replicas:
+                    replicas[dev] = copy.deepcopy(model).to(dev)
+                self._groups.append(_Group(g * per, (g + 1) * per, dev,
+                                           _model_step(replicas[dev])))
+        self.device = self._groups[0].device
 
         # Mask transfer packing: exact b-bit encoding, b = bits needed for
         # num_classes, provided the row length divides the pixels/byte.
@@ -151,13 +196,14 @@ class BatchingEngine:
                                    self.image_size % (8 // bits) == 0) else 8
 
         with torch.inference_mode():
-            self._mem = torch.zeros(mem_shape, dtype=torch.float32,
-                                    device=self.device)
-            self._seen = torch.zeros((streams,), dtype=torch.int32,
-                                     device=self.device)
-            self._zero = torch.zeros((chunk, self.image_size, self.image_size,
+            for g in self._groups:
+                g.mem = torch.zeros((g.hi - g.lo, *mem_shape[1:]),
+                                    dtype=torch.float32, device=g.device)
+                g.seen = torch.zeros((g.hi - g.lo,), dtype=torch.int32,
+                                     device=g.device)
+                g.zero = torch.zeros((chunk, self.image_size, self.image_size,
                                       self.in_channels), dtype=torch.uint8,
-                                     device=self.device)
+                                     device=g.device)
 
         self._resize_cache: "OrderedDict[tuple, Tuple[Tensor, Tensor]]" = \
             OrderedDict()
@@ -197,42 +243,48 @@ class BatchingEngine:
 
     # -- device side -----------------------------------------------------------
 
-    def _to_device(self, arr: np.ndarray) -> Tensor:
-        """A copy of ``arr`` on the engine's device: through pinned host
-        memory, without blocking, on a card."""
+    def _group_of(self, slot: int) -> _Group:
+        return self._groups[slot // (self.streams // len(self._groups))]
+
+    @staticmethod
+    def _to_device(arr: np.ndarray, device: torch.device) -> Tensor:
+        """A copy of ``arr`` on ``device``: through pinned host memory,
+        without blocking, on a card."""
         t = torch.from_numpy(np.ascontiguousarray(arr))
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
+        if device.type == "cuda":
+            return t.pin_memory().to(device, non_blocking=True)
         return t.clone()
 
-    def _step(self, frames: Tensor, flags: Tensor) -> Tensor:
-        """One tick: advance every slot, freeze inactive slots' state.
+    def _step(self, g: _Group, frames: Tensor, flags: Tensor) -> Tensor:
+        """One tick of group ``g``: advance its slots, freeze inactive
+        slots' state.
 
-        frames (S, chunk, H, W, C) uint8; flags (2, S) fp32: flags[0] = 1
-        for an active slot (inactive slots compute, but their state does
+        frames (S_g, chunk, H, W, C) uint8; flags (2, S_g) fp32: flags[0] =
+        1 for an active slot (inactive slots compute, but their state does
         not move and their masks are dropped), flags[1] = 1 for a slot whose
-        state is zeroed before the tick (a new session).  → masks (S,
+        state is zeroed before the tick (a new session).  → masks (S_g,
         chunk, H, W) uint8.  The state tensors are replaced, never written
         in place.
         """
         active, resets = flags[0], flags[1]
         per_slot = (-1, 1, 1, 1)
-        mem_in = self._mem * (1.0 - resets).view(per_slot)
-        seen_in = self._seen * (1 - resets.to(torch.int32))
-        logits, mem, seen = self._raw_step(frames, mem_in, seen_in)
+        mem_in = g.mem * (1.0 - resets).view(per_slot)
+        seen_in = g.seen * (1 - resets.to(torch.int32))
+        logits, mem, seen = g.raw_step(frames, mem_in, seen_in)
         masks = mask_from_logits(logits)
-        self._mem = torch.where(active.view(per_slot) > 0, mem, mem_in)
-        self._seen = torch.where(active > 0, seen, seen_in)
+        g.mem = torch.where(active.view(per_slot) > 0, mem, mem_in)
+        g.seen = torch.where(active > 0, seen, seen_in)
         return masks
 
     def _post_bucket(self, n_active: int) -> int:
-        """Gather size for n_active slots: the next power of two, capped at
-        the pool size.  At most log2(S)+1 transfer shapes, each warmed up by
-        the constructor, for at most twice the bytes on odd counts."""
+        """Gather size for n_active slots of a group: the next power of
+        two, capped at the group's size.  At most log2(S)+1 transfer shapes,
+        each warmed up by the constructor, for at most twice the bytes on
+        odd counts."""
         b = 1
         while b < n_active:
             b *= 2
-        return min(b, self.streams)
+        return min(b, self.streams // len(self._groups))
 
     def _post(self, masks: Tensor, idx: Tensor) -> Tensor:
         """Gather the slots ``idx`` of (S, chunk, H, W) uint8 masks and
@@ -258,35 +310,39 @@ class BatchingEngine:
         out = np.stack(lanes, axis=-1)               # (..., W/ppb, ppb)
         return out.reshape(packed.shape[:-1] + (packed.shape[-1] * ppb,))
 
-    def _fetch_async(self, out: Tensor):
+    @staticmethod
+    def _fetch_async(out: Tensor):
         """Start the copy of ``out`` to the host → (host tensor, event to
         wait on, or None where the copy is already complete)."""
-        if self.device.type != "cuda":
+        if out.device.type != "cuda":
             return out, None
         host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
         host.copy_(out, non_blocking=True)
         event = torch.cuda.Event()
-        event.record(torch.cuda.current_stream(self.device))
+        event.record(torch.cuda.current_stream(out.device))
         return host, event
 
-    def _frames(self, batch_pieces: Dict[int, "_Piece"]) -> Tensor:
-        """The tick's (S, chunk, H, W, C) frames: each slot's staged piece,
-        idle slots a zero chunk."""
-        frames = [self._zero] * self.streams
+    @staticmethod
+    def _frames(g: _Group, batch_pieces: Dict[int, "_Piece"]) -> Tensor:
+        """Group ``g``'s (S_g, chunk, H, W, C) frames of the tick: each
+        slot's staged piece, idle slots a zero chunk."""
+        frames = [g.zero] * (g.hi - g.lo)
         for slot, piece in batch_pieces.items():
-            frames[slot] = piece.frames_dev
+            if g.lo <= slot < g.hi:
+                frames[slot - g.lo] = piece.frames_dev
         return torch.stack(frames)
 
     def _warmup(self) -> None:
-        """One tick and every post bucket on the batcher thread, before it
-        takes work, so that the first request does not pay the kernels'
-        build and first launches (nor, on the CPU, oneDNN's per-thread
-        set-up of its convolutions, ~1 s)."""
-        masks = self._step(self._frames({}), self._to_device(
-            np.zeros((2, self.streams), np.float32)))
-        for nb in sorted({self._post_bucket(n)
-                          for n in range(1, self.streams + 1)}):
-            self._post(masks, self._to_device(np.zeros(nb, np.int64))).cpu()
+        """One tick and every post bucket of each group on the batcher
+        thread, before it takes work, so that the first request does not
+        pay the kernels' build and first launches (nor, on the CPU, oneDNN's
+        per-thread set-up of its convolutions, ~1 s)."""
+        for g in self._groups:
+            n = g.hi - g.lo
+            masks = self._step(g, self._frames(g, {}), self._to_device(
+                np.zeros((2, n), np.float32), g.device))
+            for nb in sorted({self._post_bucket(i) for i in range(1, n + 1)}):
+                self._post(masks, self._to_device(np.zeros(nb, np.int64), g.device)).cpu()
 
     # -- session management ----------------------------------------------------
 
@@ -337,14 +393,16 @@ class BatchingEngine:
         """Resize a staged (T, H, W, C) uint8 video to the engine size on
         its device, with the resize matrices kept per source shape in an
         LRU of ``_RESIZE_CACHE_MAX``; masks are then at the engine size."""
-        key = ("resize", tuple(video.shape[1:3]))
+        # Over a mesh, the other devices' matrices are kept apart.
+        key = ("resize", tuple(video.shape[1:3])) + (
+            (video.device,) if video.device != self.device else ())
         size = (self.image_size, self.image_size)
         with self._lock:
             mats = self._resize_cache.get(key)
             if mats is not None:
                 self._resize_cache.move_to_end(key)
         if mats is None:
-            mats = resize_matrices(key[1], size, self.device)
+            mats = resize_matrices(key[1], size, video.device)
             with self._lock:
                 self._resize_cache[key] = mats
                 while len(self._resize_cache) > _RESIZE_CACHE_MAX:
@@ -407,7 +465,7 @@ class BatchingEngine:
         # there if needed, pad the tail by repeating the last frame (as
         # stream_video does), and split it into pieces.
         with torch.inference_mode():
-            video = self._to_device(video_u8)
+            video = self._to_device(video_u8, self._group_of(slot).device)
             if (hh, ww) != (self.image_size, self.image_size):
                 video = self._device_resize(video)
             if pad:
@@ -446,14 +504,15 @@ class BatchingEngine:
 
     def _deliver(self, pending) -> None:
         """Wait for one launched tick's (gathered, packed) masks to reach
-        the host and wake the waiting request threads."""
-        host, event, idx, batch_pieces = pending
+        the host, group by group, and wake the waiting request threads."""
+        fetched, batch_pieces = pending
         try:
-            if event is not None:
-                event.synchronize()
-            masks = self._unpack(host.numpy())
-            for j, slot in enumerate(idx):
-                self._finish(batch_pieces[slot], masks=masks[j])
+            for host, event, idx in fetched:
+                if event is not None:
+                    event.synchronize()
+                masks = self._unpack(host.numpy())
+                for j, slot in enumerate(idx):
+                    self._finish(batch_pieces[slot], masks=masks[j])
         except Exception as exc:          # deliver, don't kill the loop
             for piece in batch_pieces.values():
                 self._finish(piece, error=exc)
@@ -510,7 +569,7 @@ class BatchingEngine:
             self._loop()
 
     def _loop(self) -> None:
-        pending = None        # (host, event, idx, batch_pieces) of tick t
+        pending = None        # ([(host, event, slots) a group], batch_pieces) of tick t
         while True:
             self._reclaim_idle()
             with self._work:
@@ -545,15 +604,23 @@ class BatchingEngine:
                         flags[1, slot] = 1.0
                     for slot in batch_pieces:
                         flags[0, slot] = 1.0
-                    masks = self._step(self._frames(batch_pieces),
-                                       self._to_device(flags))
-                    if batch_pieces:
-                        idx = sorted(batch_pieces)
+                    # Every group's step is launched before any gather.
+                    masks = [self._step(g, self._frames(g, batch_pieces),
+                                        self._to_device(flags[:, g.lo:g.hi], g.device))
+                             for g in self._groups]
+                    fetched = []
+                    for g, m in zip(self._groups, masks):
+                        idx = sorted(s for s in batch_pieces if g.lo <= s < g.hi)
+                        if not idx:
+                            continue
                         nb = self._post_bucket(len(idx))
-                        idx_pad = idx + [idx[-1]] * (nb - len(idx))
-                        out = self._post(masks, self._to_device(
-                            np.asarray(idx_pad, np.int64)))
-                        nxt = (*self._fetch_async(out), idx, batch_pieces)
+                        local = [s - g.lo for s in idx]
+                        local += [local[-1]] * (nb - len(local))
+                        out = self._post(m, self._to_device(
+                            np.asarray(local, np.int64), g.device))
+                        fetched.append((*self._fetch_async(out), idx))
+                    if fetched:
+                        nxt = (fetched, batch_pieces)
                     self.ticks += 1
                 except Exception as exc:   # deliver, don't kill the loop
                     with self._lock:       # resets were not applied
@@ -628,7 +695,8 @@ def make_server(engine: BatchingEngine, host: str = "127.0.0.1",
                     "session_ttl": engine.session_ttl,
                     "sessions_reclaimed": engine.sessions_reclaimed,
                     "stats_dropped": engine.stats_dropped,
-                    "mesh": None,
+                    "mesh": (engine._mesh.shape if engine._mesh is not None
+                             else None),
                     "device": str(engine.device),
                 })
             else:

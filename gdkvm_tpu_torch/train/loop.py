@@ -1,6 +1,6 @@
 """Training: optimizer, train step, train state and the whole run.
 
-Port of gdkvm_tpu/train/loop.py on one device.  The optimizer is the JAX
+Port of gdkvm_tpu/train/loop.py.  The optimizer is the JAX
 package's optax chain written out: global-norm clip → AdamW on a
 warmup-cosine schedule from 0 to the peak and down to 5%, inside
 ``optax.MultiSteps`` gradient accumulation.  The step samples first-frame
@@ -9,6 +9,15 @@ soft Dice, applies the update and keeps an EMA of the params on applied
 updates.  :func:`train` is the run: data from the device cache or the
 prefetched host pipeline, the metrics log, the periodic eval stage,
 checkpoints and resume.
+
+Data parallelism (the JAX package's ``data`` mesh axis) runs one process per
+device in a ``torch.distributed`` group (parallel/distributed.py).  A step
+there is the one-device step on the global batch: every rank draws the same
+global batch and prompt bits, keeps its rows (``parallel.batch_slice``),
+takes the loss over the valid frames of the whole batch (their count is
+summed over the ranks first) and averages its gradients and metrics with
+the others' before the update, so every replica takes the same update.
+Only rank 0 writes the run's files.
 
 Under ``gdr_impl="auto"`` (kept at 256² by ``train_model_config``) the GDR
 scan of a CUDA model runs the forward kernel with residuals and the backward
@@ -26,7 +35,7 @@ from typing import Callable, Dict, Iterator, List, Optional, Tuple, Union
 import torch
 import torch.utils.checkpoint
 
-from gdkvm_tpu_torch.config.schema import Config, save_config
+from gdkvm_tpu_torch.config.schema import Config, data_parallel_size, save_config
 from gdkvm_tpu_torch.data import device_cache as dc
 from gdkvm_tpu_torch.data.pipeline import (Batch, batch_iterator, make_dataset,
                                            prefetch_to_device)
@@ -34,6 +43,8 @@ from gdkvm_tpu_torch.eval.evaluator import evaluate
 from gdkvm_tpu_torch.io.checkpoint import CheckpointManager
 from gdkvm_tpu_torch.io.metrics_log import MetricsLogger
 from gdkvm_tpu_torch.models.gdkvm import GDKVM, init_params, train_model_config
+from gdkvm_tpu_torch.parallel import distributed
+from gdkvm_tpu_torch.parallel.mesh import batch_slice
 from gdkvm_tpu_torch.train import losses
 from gdkvm_tpu_torch.utils.profiling import (StepTimer, maybe_profile,
                                              trace_annotation)
@@ -204,8 +215,9 @@ def use_params(model: GDKVM, values: List[Tensor]) -> Iterator[None]:
 class CacheSampler:
     """The device cache as a batch source: ``sample(step)`` reseeds the
     cache's generator from ``(train.seed, 17, data.seed, step)`` and draws
-    the step's batch on the device, so the batch is a pure function of the
-    step (the JAX package folds its key the same way)."""
+    the step's global batch on the device, so the batch is a pure function
+    of the step (the JAX package folds its key the same way); it returns
+    this rank's rows of it (all of them in one process)."""
     cache: Union[dc.DeviceDataset, dc.VideoDeviceCache]
     cfg: Config
     gen: torch.Generator
@@ -216,9 +228,14 @@ class CacheSampler:
             (cfg.train.seed, 17, cfg.data.seed, step)))
         kw = dict(augment=cfg.data.augment, occlude_prob=cfg.data.occlude_prob)
         if isinstance(self.cache, dc.VideoDeviceCache):
-            return dc.sample_video_batch(self.cache, self.gen, cfg.train.batch_size,
-                                         cfg.data.clip_len, **kw)
-        return dc.sample_batch(self.cache, self.gen, cfg.train.batch_size, **kw)
+            batch = dc.sample_video_batch(self.cache, self.gen, cfg.train.batch_size,
+                                          cfg.data.clip_len, **kw)
+        else:
+            batch = dc.sample_batch(self.cache, self.gen, cfg.train.batch_size, **kw)
+        if distributed.world_size() == 1:
+            return batch
+        rows = batch_slice(distributed.rank(), cfg.train.batch_size)
+        return Batch(batch.frames[rows], batch.masks[rows], batch.valid[rows])
 
 
 def loss_and_grads(state: TrainState, batch: Union[Batch, CacheSampler],
@@ -228,6 +245,12 @@ def loss_and_grads(state: TrainState, batch: Union[Batch, CacheSampler],
     gradient per param).  ``batch`` is a Batch, or a :class:`CacheSampler`
     that draws this step's batch on the device.  Draws the step's prompt
     bits from ``state.gen``.
+
+    In a process group of W ranks ``batch`` holds this rank's rows of a
+    global batch of W times as many (a CacheSampler returns them); the
+    prompt bits are drawn for the global batch and sliced the same way, and
+    the metrics and gradients returned are those of the global batch,
+    averaged (summed, for the checksum) over the ranks.
 
     Under ``train.remat`` the model's forward runs a second time inside the
     backward, through the GDR's autograd Function too: the forward's
@@ -244,10 +267,12 @@ def loss_and_grads(state: TrainState, batch: Union[Batch, CacheSampler],
     frames = normalize_frames(frames_u8)
     masks = torch.as_tensor(batch.masks, device=dev).long()
     valid = torch.as_tensor(batch.valid, device=dev).to(torch.float32)
-    b = frames.shape[0]
+    world = distributed.world_size()
+    b = frames.shape[0] * world
     # Stochastic first-frame prompting, only where frame 0 has ground truth.
     use_prompt = torch.bernoulli(torch.full((b,), t.prompt_prob),
-                                 generator=state.gen).to(dev)
+                                 generator=state.gen)
+    use_prompt = use_prompt[batch_slice(distributed.rank(), b)].to(dev)
     prompt_w = use_prompt * valid[:, 0]
     bweight = 1.0 if t.bootstrap_ratio >= 1.0 else losses.bootstrap_schedule(
         state.step, t.num_iterations, t.bootstrap_start, t.bootstrap_end)
@@ -259,16 +284,27 @@ def loss_and_grads(state: TrainState, batch: Union[Batch, CacheSampler],
             state.model, frames, None, masks[:, 0], prompt_w, use_reentrant=False)
     else:
         logits, _ = state.model(frames, None, masks[:, 0], prompt_w)
+    # The valid frames of the global batch: the loss's denominator.  In a
+    # process group (of one too) every reduction goes through the group.
+    grouped = distributed.in_group()
+    valid_total = distributed.all_reduce_sum([valid.sum()])[0] if grouped else None
     loss, aux = losses.segmentation_loss(
         logits, masks, valid, ce_weight=t.ce_weight, dice_weight=t.dice_weight,
-        bootstrap_ratio=t.bootstrap_ratio, bootstrap_weight=bweight)
-    grads = torch.autograd.grad(loss, params)
+        bootstrap_ratio=t.bootstrap_ratio, bootstrap_weight=bweight,
+        valid_total=valid_total, world=world)
+    grads = distributed.all_reduce_mean(list(torch.autograd.grad(loss, params)))
     metrics = {k: v.detach() for k, v in aux.items()}
     # Sum of the batch's bytes: two runs that log the same value at a step
     # saw the same batch there (exact below 2^53).
     metrics["batch_checksum"] = (frames_u8.sum(dtype=torch.int64)
                                  + masks.sum()).to(torch.float64)
-    return metrics, list(grads)
+    if grouped:
+        keys = list(metrics)
+        packed = torch.stack([metrics[k].to(torch.float64)
+                              / (1 if k == "batch_checksum" else world) for k in keys])
+        packed = distributed.all_reduce_sum([packed])[0]
+        metrics = {k: v.to(metrics[k].dtype) for k, v in zip(keys, packed)}
+    return metrics, grads
 
 
 def train_step(state: TrainState, batch: Union[Batch, CacheSampler], cfg: Config
@@ -307,19 +343,25 @@ def train(cfg: Config, max_steps: Optional[int] = None,
     cache when the split fits (``data.device_cache``), else from the
     threaded host pipeline through the prefetcher.  Runs ``max_steps``
     micro-steps in all (default ``num_iterations``) and returns the last
-    logged metrics and the last eval's, as floats."""
+    logged metrics and the last eval's, as floats.
+
+    Under an initialized process group (parallel/distributed.py) this
+    process trains its rank's share of every global batch on ``device``
+    (the rank's own): ``parallel.data_axis`` must be -1 or the world size
+    and ``train.batch_size``, the global batch, must split over the ranks.
+    Every rank builds the same parameters from the seed, restores the same
+    checkpoint on resume and returns the same metrics; rank 0 alone writes
+    the run dir."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("train: no CUDA device; pass device='cpu' to train "
                            "on the CPU")
-    if cfg.parallel.model_axis != 1 or cfg.parallel.data_axis > 1:
-        raise NotImplementedError(
-            f"parallel.data_axis={cfg.parallel.data_axis}, model_axis="
-            f"{cfg.parallel.model_axis}: training on more than one device is "
-            f"not ported (ROADMAP Queue 1, item 7: distribution)")
+    world, rank = distributed.world_size(), distributed.rank()
+    data_parallel_size(cfg, world)
     run_dir = cfg.runtime.run_dir
-    os.makedirs(run_dir, exist_ok=True)
-    save_config(cfg, os.path.join(run_dir, "config.yaml"))
+    if rank == 0:
+        os.makedirs(run_dir, exist_ok=True)
+        save_config(cfg, os.path.join(run_dir, "config.yaml"))
     logger = MetricsLogger(run_dir, wandb_mode=cfg.eval_stage.wandb_mode)
 
     model = GDKVM(train_model_config(cfg.model, cfg.data.image_size),
@@ -351,14 +393,15 @@ def train(cfg: Config, max_steps: Optional[int] = None,
                            occlude_prob=cfg.data.occlude_prob,
                            seed=cfg.data.seed,
                            num_workers=cfg.data.num_workers,
-                           start_step=start_step),
+                           start_step=start_step, shard=(rank, world)),
             size=cfg.data.prefetch, device=device)
 
     total = cfg.train.num_iterations if max_steps is None else max_steps
     last_eval: Dict[str, float] = {}
     final_metrics: Dict[str, float] = {}
     timer = StepTimer(skip=1)           # the first step builds and warms up
-    trace_dir = os.path.join(run_dir, "trace") if cfg.runtime.profile else None
+    trace_dir = (os.path.join(run_dir, "trace")
+                 if cfg.runtime.profile and rank == 0 else None)
 
     with contextlib.ExitStack() as stack:
         stack.enter_context(maybe_profile(trace_dir))

@@ -8,11 +8,17 @@ the selected values (the same gradient almost everywhere, an elementwise
 backward).  The threshold is the exact k-th largest value (``torch.topk``);
 the JAX package's ``approx_max_k`` is exact on the CPU, where the two are
 compared.
+
+In a data-parallel run each rank holds a share of the global batch.  The
+averages are over the valid frames of the whole batch: ``valid_total`` is
+that count (summed over the ranks beforehand), and each term comes out
+scaled by the ``world`` size, so that the mean of the ranks' losses, and of
+their gradients, is the loss of the global batch.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -22,9 +28,12 @@ Tensor = torch.Tensor
 
 def _ce_dice_terms(logits: Tensor, labels: Tensor, valid: Tensor, eps: float,
                    bootstrap_ratio: float = 1.0,
-                   bootstrap_weight: float | Tensor = 1.0
+                   bootstrap_weight: float | Tensor = 1.0,
+                   valid_total: Optional[Tensor] = None, world: int = 1
                    ) -> Tuple[Tensor, Tensor]:
-    """(CE, 1 − foreground soft Dice), both averaged over valid frames.
+    """(CE, 1 − foreground soft Dice), both averaged over valid frames: of
+    this batch, or of the global batch of ``valid_total`` valid frames over
+    ``world`` ranks (each term then scaled by ``world``).
 
     ``bootstrap_ratio`` < 1 blends mean CE with the CE of each frame's
     hardest ratio·H·W pixels by ``bootstrap_weight`` λ ∈ [0, 1].
@@ -33,7 +42,8 @@ def _ce_dice_terms(logits: Tensor, labels: Tensor, valid: Tensor, eps: float,
     logp = F.log_softmax(logits, dim=-1)
     onehot = F.one_hot(labels.long(), k).to(logp.dtype)
     valid = valid.to(logp.dtype)
-    denom = valid.sum().clamp_min(1.0)
+    total = valid.sum() if valid_total is None else valid_total.to(logp.dtype)
+    denom = total.clamp_min(1.0) / world
 
     ll = (logp * onehot).sum(-1)                       # (B,T,H,W)
     per_frame = -ll.mean((2, 3))                        # (B,T)
@@ -76,15 +86,18 @@ def bootstrap_schedule(step: int, num_iterations: int, start_frac: float,
 def segmentation_loss(logits: Tensor, labels: Tensor, valid: Tensor,
                       ce_weight: float = 1.0, dice_weight: float = 1.0,
                       bootstrap_ratio: float = 1.0,
-                      bootstrap_weight: float | Tensor = 1.0
+                      bootstrap_weight: float | Tensor = 1.0,
+                      valid_total: Optional[Tensor] = None, world: int = 1
                       ) -> Tuple[Tensor, Dict[str, Tensor]]:
     """CE (bootstrapped when ``bootstrap_ratio`` < 1) + soft Dice.
 
     logits (B, T, H, W, K) fp32; labels (B, T, H, W) int; valid (B, T).
-    → (loss, {"loss", "ce", "dice_loss"}).
+    ``valid_total``, ``world``: this rank's share of a global batch (see the
+    module docstring).  → (loss, {"loss", "ce", "dice_loss"}).
     """
     ce, dl = _ce_dice_terms(logits, labels, valid, eps=1.0,
                             bootstrap_ratio=bootstrap_ratio,
-                            bootstrap_weight=bootstrap_weight)
+                            bootstrap_weight=bootstrap_weight,
+                            valid_total=valid_total, world=world)
     loss = ce_weight * ce + dice_weight * dl
     return loss, {"loss": loss, "ce": ce, "dice_loss": dl}

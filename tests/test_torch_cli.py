@@ -120,11 +120,9 @@ def test_serve_check_defaults_to_cuda(tmp_path, monkeypatch):
 NOT_PORTED = [
     (["quant"], 9), (["export", "--out", "a", "--quant-scales", "s.json"], 9),
     (["stream-eval", "--quant-scales", "s.json"], 9), (["parity", "--quant-scales", "s.json"], 9),
-    (["serve", "--quant-scales", "s.json"], 9), (["serve", "--artifact", "a", "--mesh", "auto"], 7),
-    (["serve", "--mesh", "auto"], 7),
+    (["serve", "--quant-scales", "s.json"], 9), (["serve", "--mesh", "2x2"], 7),
     (["bench", "--mode", "all", "--smoke"], 4), (["bench", "--mode", "all"], 9),
-    (["train", "--device", "cpu", "parallel.model_axis=2"], 7),
-    (["train", "--device", "cpu", "parallel.data_axis=4"], 7)]
+    (["train", "--device", "cpu", "parallel.model_axis=2"], 7)]
 
 
 @pytest.mark.parametrize("argv,item", NOT_PORTED, ids=lambda a: "-".join(map(str, a[:3]))
@@ -136,11 +134,64 @@ def test_unported_commands_and_flags_raise_their_item(argv, item, tmp_path, monk
     assert not os.listdir(tmp_path)
 
 
+def _clear_launcher_env(monkeypatch):
+    for name in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT",
+                 "GDKVM_COORDINATOR", "GDKVM_NUM_PROCESSES", "GDKVM_PROCESS_ID"):
+        monkeypatch.delenv(name, raising=False)
+
+
 def test_train_refuses_a_torchrun_world(monkeypatch, tmp_path):
-    """N processes would each train their own copy: refused, citing item 7."""
+    """A torchrun environment with variables missing (WORLD_SIZE alone) is
+    refused, naming them, before anything is written: no process trains a
+    copy of its own."""
+    _clear_launcher_env(monkeypatch)
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 7"):
+    with pytest.raises(RuntimeError, match="RANK, MASTER_ADDR, MASTER_PORT unset"):
         main(["train", "--device", "cpu", f"runtime.run_dir={tmp_path}"])
+    assert not os.listdir(tmp_path)
+
+
+def test_train_in_a_one_rank_process_group(monkeypatch, tmp_path):
+    """train under torchrun's variables for one rank joins a gloo group of
+    one on the CPU, trains, prints its JSON and leaves the group."""
+    import socket
+    from gdkvm_tpu_torch.parallel import distributed
+    from gdkvm_tpu_torch.train import loop
+    _clear_launcher_env(monkeypatch)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    for k, v in dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                     MASTER_PORT=str(port), GDKVM_DIST_TIMEOUT="30").items():
+        monkeypatch.setenv(k, v)
+    groups = []
+
+    def recording_train(cfg, **kw):
+        groups.append((torch.distributed.get_backend(), distributed.process_info()))
+        return train(cfg, **kw)
+    monkeypatch.setattr(loop, "train", recording_train)
+    out = run(["train", "--device", "cpu", "num_iterations=2", "batch_size=2",
+               "train.log_every=1", f"runtime.run_dir={tmp_path}"] + SMALL)[-1]
+    assert groups == [("gloo", {"process_index": 0, "process_count": 1,
+                                "local_devices": 1, "global_devices": 1})]
+    assert np.isfinite(out["final"]["loss"]) and not torch.distributed.is_initialized()
+    assert len(open(tmp_path / "metrics.jsonl").readlines()) == 3
+
+
+@pytest.mark.parametrize("argv,err", [
+    (["serve", "--artifact", "a", "--mesh", "auto"], "applies to the checkpoint path"),
+    (["serve", "--mesh", "3"], "must be 'auto' or 'DxM'"),
+], ids=["artifact", "malformed"])
+def test_serve_mesh_flag_errors(argv, err, capsys, tmp_path):
+    """As in the JAX package: exit code 2 and the reason on stderr."""
+    assert main(argv + [f"runtime.run_dir={tmp_path}"]) == 2
+    assert err in capsys.readouterr().err
+
+
+def test_train_data_axis_must_be_the_world(tmp_path):
+    with pytest.raises(ValueError, match="parallel.data_axis=4: a run of 1 process"):
+        main(["train", "--device", "cpu", "parallel.data_axis=4",
+              f"runtime.run_dir={tmp_path}"])
     assert not os.listdir(tmp_path)
 
 
@@ -357,6 +408,42 @@ def test_serve_subprocess_and_serve_bench(trained):
             proc.kill()
         proc.stdout.close()
         proc.stderr.close()
+
+
+@pytest.mark.parametrize("mesh", [["2x1"], ["auto", "parallel.data_axis=2"]],
+                         ids=["2x1", "auto"])
+def test_serve_mesh_splits_the_pool(trained, mesh, monkeypatch):
+    """serve --mesh on the CPU: two replicas of the run's model, one slot
+    each; /healthz reports the mesh and a session's masks are
+    stream_video's."""
+    from gdkvm_tpu_torch import serve
+    real, seen = serve.make_server, {}
+    video = np.random.default_rng(5).integers(0, 255, (6, IMAGE, IMAGE, 1), np.uint8)
+
+    def make_server(engine, host, port):
+        srv = real(engine, host, 0)
+
+        def serve_forever():              # one session, then as if SIGINT
+            thread = threading.Thread(target=type(srv).serve_forever, args=(srv,))
+            thread.start()
+            client = serve.ServeClient(*srv.server_address)
+            seen["health"] = client.health()
+            client.open()
+            seen["masks"] = client.infer(video)
+            client.close()
+            srv.shutdown()
+            thread.join(timeout=30)
+            raise KeyboardInterrupt
+        srv.serve_forever = serve_forever
+        return srv
+    monkeypatch.setattr(serve, "make_server", make_server)
+    out = run(["serve", "--device", "cpu", "--port", "0", "--streams", "2", "--chunk", "4",
+               "--mesh", mesh[0]] + trained[1] + mesh[1:])[-1]
+    assert out["serving"] and out["streams"] == 2
+    assert seen["health"]["mesh"] == {"data": 2, "model": 1}
+    model, _ = cli._load_model(schema.load_config(None, trained[1]), None,
+                               torch.device("cpu"), "testing")
+    np.testing.assert_array_equal(seen["masks"], stream_video(model, video, chunk=4))
 
 
 @pytest.fixture(scope="module")

@@ -20,6 +20,7 @@ from gdkvm_tpu_torch.config.schema import ModelConfig
 from gdkvm_tpu_torch.eval.streaming import stream_video
 from gdkvm_tpu_torch.io.export import load_artifact, save_artifact
 from gdkvm_tpu_torch.models.gdkvm import GDKVM, init_params
+from gdkvm_tpu_torch.parallel.mesh import Mesh, make_mesh
 from gdkvm_tpu_torch.serve import (_RESIZE_CACHE_MAX, BatchingEngine,
                                    EngineOverloaded, ServeClient, _Piece,
                                    make_server)
@@ -466,11 +467,59 @@ def test_engine_threads_take_the_residual_free_kernel(fwd):
 
 
 def test_unported_serving_options_raise(small_model):
-    """mesh= raises citing item 7, with a model and with an artifact."""
+    """A mesh with a model axis (the heads over devices) raises citing item
+    7; a mesh with an artifact, or a pool that does not split over the
+    mesh, raises as in the JAX package."""
+    cpu = torch.device("cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 7"):
-        BatchingEngine(model=small_model, mesh=object(), warmup=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 7"):
-        BatchingEngine(artifact="art/", mesh=object(), warmup=False)
+        BatchingEngine(model=small_model, mesh=Mesh(data=1, devices=(cpu,), model=2),
+                       warmup=False)
+    with pytest.raises(ValueError, match="requires the model path"):
+        BatchingEngine(artifact="art/", mesh=make_mesh(data=2, devices=[cpu] * 2),
+                       warmup=False)
+    with pytest.raises(ValueError, match="streams=3 must be divisible"):
+        BatchingEngine(model=small_model, streams=3, mesh=make_mesh(data=2, devices=[cpu] * 2),
+                       warmup=False)
+
+
+def test_mesh_engine_matches_one_device_engine_and_stream_video(small_model):
+    """The slot pool split over a data=2 mesh (a replica of the model on the
+    second device) serves each session exactly as the one-device engine and
+    stream_video do, with sessions in both groups at once, one resized on
+    its group's device; /healthz reports the mesh."""
+    mesh = make_mesh(data=2, devices=["cpu", "cpu:0"])
+    videos = [_video(40 + i, t=9) for i in range(3)] + [
+        np.random.default_rng(44).integers(0, 255, (6, 40, 56, 1), np.uint8)]
+    engines = [BatchingEngine(model=small_model, streams=4, chunk=CHUNK, image_size=SIZE,
+                              mesh=m) for m in (mesh, None)]
+    srv = make_server(engines[0], "127.0.0.1", 0)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    try:
+        assert ServeClient(*srv.server_address).health()["mesh"] == {"data": 2, "model": 1}
+        assert [g.lo for g in engines[0]._groups] == [0, 2]
+        assert engines[0]._groups[1].raw_step is not engines[0]._groups[0].raw_step
+        got = [dict() for _ in engines]
+        for eng, out in zip(engines, got):
+            sids = [eng.open_session()["session"] for _ in videos]
+            threads = [threading.Thread(target=lambda i=i, sid=sid: out.__setitem__(
+                i, eng.infer(sid, videos[i]))) for i, sid in enumerate(sids)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=60)
+                assert not t.is_alive()
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=10)
+        for eng in engines:
+            eng.close()
+    for i, video in enumerate(videos):
+        np.testing.assert_array_equal(got[0][i], got[1][i])
+        if video.shape[1:3] == (SIZE, SIZE):
+            np.testing.assert_array_equal(got[0][i], stream_video(small_model, video,
+                                                                   chunk=CHUNK))
 
 
 @pytest.fixture(scope="module")
