@@ -88,7 +88,21 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    ``sweep``; ``scale``; and ``stream-eval`` of the two other documented
    models, ``gdkvm_rt_112`` (H=2, d=48) and ``gdkvm_base_256`` (H=6,
    N=256), against the same call under ``gdr_impl=chunked``;
-12. times on the card: frames/s of streaming and steps/s of training on both
+12. W8A8 quantized serving (the seventh main path): the ts8 model at full
+   width on seeded weights at 112² (2 classes) and 256² (4 classes),
+   calibrated with absmax and percentile; every eligible conv's W8A8 call on
+   the card bit-equal to the same call on the CPU; W8A8 masks against bf16;
+   the bf16 and the W8A8 forward timed in turns at ``quant_ab``'s shapes,
+   with peak memory and a device-time breakdown; then the commands on the
+   run of phase 11: ``quant --check``, ``stream-eval``, ``parity --ablate``,
+   ``export`` + ``infer --artifact`` (the artifact's steps equal to the eager
+   W8A8 model's) and ``serve`` (a subprocess), each with ``--quant-scales``;
+   ``gdr_assoc`` against ``gdr_chunked`` (values and gradients, fp32) at the
+   serving, streaming and training shapes;
+13. ``bench --mode all --device cuda`` (the regression artifact of
+   ``eval/regression.py``): no errored section, the artifact valid, each
+   section's headline number and the artifact printed;
+14. times on the card: frames/s of streaming and steps/s of training on both
    paths; serving frames/s, request latency p50/p95/p99 (16- and 256-frame
    requests), queue wait and service time and peak memory per forward
    split, in turns; each kernel against its plain version at its main
@@ -2050,16 +2064,15 @@ def _cli_info_subprocess(name: str) -> None:
 
 
 
-def _cli_serve_subprocess(tmp: str, smi: str) -> None:
-    """``serve`` as a subprocess on port 0 (its first stdout line gives the
-    port), ``serve-bench`` against it in this process, then SIGINT, which
-    must end it with exit code 0."""
-    from gdkvm_tpu_torch.serve import ServeClient
-    err_path = os.path.join(tmp, "serve.err")
+@contextlib.contextmanager
+def _serve_subprocess(argv: list, err_path: str):
+    """``python -m gdkvm_tpu_torch serve`` with ``argv`` (port 0) in a
+    process of its own → its first stdout line (host, port, ...); on leaving
+    the block, SIGINT, which must end it with exit code 0.  Its stderr goes
+    to ``err_path``."""
     with open(err_path, "w") as err:
         proc = subprocess.Popen(
-            [sys.executable, "-m", "gdkvm_tpu_torch", "serve", "--config", TS8_112,
-             "--port", "0", "--streams", "8", f"runtime.run_dir={os.path.join(tmp, 'none')}"],
+            [sys.executable, "-m", "gdkvm_tpu_torch", "serve", "--port", "0"] + argv,
             cwd=REPO, env=_module_env(), stdout=subprocess.PIPE, stderr=err, text=True)
     watchdog = threading.Timer(300, proc.kill)     # a server that never answers
     watchdog.start()
@@ -2068,7 +2081,28 @@ def _cli_serve_subprocess(tmp: str, smi: str) -> None:
         if not line:
             raise AssertionError(f"serve printed nothing (rc {proc.wait()}): "
                                  f"{open(err_path).read()[-2000:]}")
-        first = json.loads(line)
+        yield json.loads(line)
+        proc.send_signal(signal.SIGINT)
+        rc = proc.wait(timeout=120)
+        if rc != 0:
+            raise AssertionError(f"serve ended with rc {rc}: {open(err_path).read()[-2000:]}")
+    finally:
+        watchdog.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        proc.stdout.close()
+
+
+def _cli_serve_subprocess(tmp: str, smi: str) -> None:
+    """``serve`` as a subprocess on port 0 (its first stdout line gives the
+    port), ``serve-bench`` against it in this process, then SIGINT, which
+    must end it with exit code 0."""
+    from gdkvm_tpu_torch.serve import ServeClient
+    err_path = os.path.join(tmp, "serve.err")
+    with _serve_subprocess(["--config", TS8_112, "--streams", "8",
+                            f"runtime.run_dir={os.path.join(tmp, 'none')}"],
+                           err_path) as first:
         client = ServeClient(first["host"], first["port"])
         before = client.health()
         if before["device"] != "cuda:0" or first["streams"] != 8 or first["chunk"] != 16 \
@@ -2082,16 +2116,6 @@ def _cli_serve_subprocess(tmp: str, smi: str) -> None:
         if bench["ok"] is not True or bench["frames_total"] != 8 * 256 \
                 or not after["ticks"] > before["ticks"]:
             raise AssertionError(f"serve-bench: {bench}")
-        proc.send_signal(signal.SIGINT)
-        rc = proc.wait(timeout=120)
-        if rc != 0:
-            raise AssertionError(f"serve ended with rc {rc}: {open(err_path).read()[-2000:]}")
-    finally:
-        watchdog.cancel()
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
-        proc.stdout.close()
     if "UNTRAINED init" not in open(err_path).read():
         raise AssertionError("serve without a checkpoint gave no warning")
 
@@ -2380,7 +2404,329 @@ def phase_cli(device, info: dict, roots: dict) -> dict:
         raise AssertionError(f"cli path counts {total}")
     return {"fwd": total["fwd_kernel"] - total["residual_fwd"],
             "residual": total["residual_fwd"], "bwd": total["bwd_kernel"],
-            "chain": total["chain_kernel"]}
+            "chain": total["chain_kernel"], "base": base, "source": source}
+
+
+# ------------------------------------------------------ W8A8 and gdr_assoc
+
+# gdr_assoc against gdr_chunked on the card, fp32 (TF32 off): o, s_T and
+# every gradient as max|Δ| over max| |.  The two sum in other orders (the
+# scan composes T maps by log-depth products); measured on the CPU ≤ 1e-6.
+ASSOC_REL = 1e-4
+
+
+def _only_forward_launches(what: str) -> int:
+    """The forward kernel's residual-free launches since the last reset (then
+    reset), and a raise where anything else ran or nothing did."""
+    counts = _read_counts()
+    if counts["fwd_kernel"] < 1 or counts != dict(_ZERO, fwd_kernel=counts["fwd_kernel"]):
+        raise AssertionError(f"{what}: counts {counts}, expected forward launches only")
+    _reset_counts()
+    return counts["fwd_kernel"]
+
+
+def _device_kernels(fn, iters: int = 3, top: int = 10) -> str:
+    """Where a call of ``fn()`` spends device time, by torch.profiler over
+    ``iters`` calls after one: the device ms and kernels a call, and the
+    ``top`` kernels by time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    agg = collections.defaultdict(lambda: [0.0, 0])
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            agg[e.name][0] += e.time_range.elapsed_us() / iters / 1e3
+            agg[e.name][1] += 1
+    rows = sorted(agg.items(), key=lambda kv: -kv[1][0])
+    total = sum(ms for ms, _ in agg.values())
+    return (f"{total:.4f} ms of device time a call in {sum(c for _, c in agg.values()) // iters}"
+            f" kernels; top: " + "; ".join(f"{name[:70]} {ms:.4f} ms x{c // iters}"
+                                           for name, (ms, c) in rows[:top]))
+
+
+def _check_convs_bit_equal(qm, clip, label: str) -> None:
+    """Every eligible conv of the W8A8 model ``qm``, on the inputs it gets
+    in a forward of ``clip`` on the card, against the same W8A8 conv on the
+    CPU: bit for bit."""
+    import torch
+    from gdkvm_tpu_torch.ops import quant
+    convs = quant.eligible_convs(qm)
+    seen = []
+    hooks = [conv.register_forward_hook(
+        lambda mod, args, out, p=path: seen.append((p, mod, args[0], out)))
+        for path, conv in convs.items()]
+    try:
+        with torch.inference_mode():
+            qm(clip)
+    finally:
+        for h in hooks:
+            h.remove()
+    for path, mod, x, out in seen:
+        want = quant.int8_conv(
+            x.cpu(), mod.qweight.cpu(), mod.qdeq.cpu(), mod.act_scale,
+            ksize=mod.ksize, stride=mod.stride,
+            bias=None if mod.bias is None else mod.bias.detach().cpu(),
+            out_dtype=mod.dtype)
+        if out.dtype != want.dtype or not torch.equal(out.cpu(), want):
+            raise AssertionError(f"W8A8 conv {path} [{label}]: the card differs from the "
+                                 f"CPU by {_abs(out.cpu().float(), want.float()):.3e}")
+    paths = {p for p, *_ in seen}
+    if paths != set(convs):
+        raise AssertionError(f"{label}: convs that did not run W8A8: {set(convs) - paths}")
+    rows = sorted({(x.shape[0] * out.shape[2] * out.shape[3], x.shape[1] * m.ksize ** 2,
+                    out.shape[1]) for _, m, x, out in seen})
+    print(f"quant [{label}]: {len(seen)} W8A8 conv calls ({len(paths)} convs) on the card "
+          f"bit-equal to the CPU; int8 products (M, K, N) from {rows[0]} to {rows[-1]}")
+
+
+def phase_quant_model(device, info: dict) -> dict:
+    """W8A8 on the ts8 model at full width, seeded weights, bf16, at
+    quant_ab's shapes (eval/regression.py: 112², 2 classes; 256², 4
+    classes): calibration with absmax and percentile on seeded clips (scope
+    "all": every eligible conv); every eligible conv of each W8A8 model on
+    the card against the CPU, bit for bit; the W8A8 masks against the bf16
+    model's; where each forward spends device time (torch.profiler).  The
+    times and peak memory of both forwards are quant_ab's, in
+    ``phase_bench_all``.  Returns the forward launches of the calibration
+    and W8A8 forwards (the profiled calls are not counted)."""
+    import torch
+    from gdkvm_tpu_torch.eval.metrics import mask_from_logits
+    from gdkvm_tpu_torch.eval.regression import QUANT_SHAPES, arm_config
+    from gdkvm_tpu_torch.models.gdkvm import GDKVM, init_params
+    from gdkvm_tpu_torch.ops import quant
+
+    launches = 0
+    for name, ncls, size, chunk, batch in QUANT_SHAPES:
+        model = init_params(GDKVM(arm_config("ts8", ncls), device=device),
+                            torch.Generator().manual_seed(0)).eval()
+        gen = torch.Generator().manual_seed(1)
+        calib = [torch.rand((1, 4, size, size, 1), generator=gen) for _ in range(2)]
+        _reset_counts()
+        tables = {}
+        for method in ("absmax", "percentile"):
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                tables[method] = quant.calibrate_act_scales(model, calib, scope="all",
+                                                            method=method)
+            print(f"quant [{name}] calibrate {method}: {len(tables[method])} convs in "
+                  f"{time.perf_counter() - t0:.2f} s; stem scale "
+                  f"{tables[method]['encoder/Conv_0']:.4f}")
+            if sorted(tables[method]) != sorted(quant.eligible_convs(model)):
+                raise AssertionError(f"calibration {method} misses an eligible conv")
+        qmodels = {m: quant.w8a8_model(model, t) for m, t in tables.items()}
+        clip = torch.rand((1, 8, size, size, 1), generator=gen).to(device)
+        for method, qm in qmodels.items():
+            _check_convs_bit_equal(qm, clip, f"{name}, {method}")
+        frames = torch.rand((batch, chunk, size, size, 1), generator=gen).to(device)
+        with torch.inference_mode():
+            lf, _ = model(frames)
+            agree = {}
+            for method, qm in qmodels.items():
+                lq, state = qm(frames)
+                if not (bool(torch.isfinite(lq).all()) and bool(torch.isfinite(state.mem).all())):
+                    raise AssertionError(f"W8A8 {name} {method}: non-finite output")
+                agree[method] = (mask_from_logits(lq) == mask_from_logits(lf)
+                                 ).to(torch.float32).mean().item()
+        launches += _only_forward_launches(f"quant model {name}")
+        print(f"quant [{name}]: W8A8 masks against the bf16 model's (seeded random "
+              f"weights, {batch} x {chunk} frames): " + ", ".join(
+                  f"{m} {a:.6f}" for m, a in agree.items()))
+        qm = qmodels["percentile"]
+        with torch.inference_mode():
+            profiles = {"bf16": _device_kernels(lambda: model(frames)),
+                        "W8A8": _device_kernels(lambda: qm(frames))}
+        _reset_counts()
+        for label, text in profiles.items():
+            print(f"quant [{name}] {label} forward of {batch} x {chunk} frames on "
+                  f"{info['smi']}, torch.profiler: {text}")
+    return {"fwd": launches}
+
+
+def phase_assoc(device, info: dict) -> dict:
+    """``gdr_assoc`` (the log-depth scan, plain torch) against
+    ``gdr_chunked`` on the card, fp32: o, s_T and every input's gradient
+    within ASSOC_REL of their largest at the serving, streaming and
+    training shapes; both forwards timed in turns without a gradient."""
+    import torch
+    from gdkvm_tpu_torch.core import gdr
+    gen = torch.Generator(device=device).manual_seed(3)
+    out = {}
+    for label, shape in (("serving T=16", SERVE_SHAPE), ("streaming T=32", (8, 4, 32, 49, 64, 64)),
+                         ("training", TRAIN_SHAPE)):
+        args = _gdr_inputs(gen, *shape, torch.float32, device)
+        res = {}
+        for fn in (gdr.gdr_assoc, gdr.gdr_chunked):
+            xs = [a.clone().requires_grad_(True) for a in args]
+            o, s = fn(*xs)
+            cot = torch.Generator(device=device).manual_seed(4)
+            wo = torch.randn(o.shape, device=device, generator=cot)
+            ws = torch.randn(s.shape, device=device, generator=cot)
+            grads = torch.autograd.grad((o * wo).sum() + (s * ws).sum(), xs)
+            res[fn.__name__] = (o.detach(), s.detach()) + tuple(grads)
+        worst = max(_rel(a, b) for a, b in zip(res["gdr_assoc"], res["gdr_chunked"]))
+        with torch.inference_mode():
+            assoc_ms, chunked_ms, spread = _in_turns(lambda: gdr.gdr_chunked(*args),
+                                                     lambda: gdr.gdr_assoc(*args), iters=10)
+        out[label] = {"assoc_ms": assoc_ms, "chunked_ms": chunked_ms, "worst_rel": worst}
+        spread = spread.replace("kernel", "assoc").replace("plain", "chunked")
+        print(f"gdr_assoc [{label} {shape}] against gdr_chunked, fp32: worst max|Δ|/max| | "
+              f"over o, s_T and 6 gradients {worst:.3e} (bar {ASSOC_REL:g}); forward "
+              f"{assoc_ms:.4f} ms against {chunked_ms:.4f} on {info['smi']} ({spread})")
+        if not worst <= ASSOC_REL:
+            raise AssertionError(f"gdr_assoc {label}: {worst} > {ASSOC_REL}")
+    return out
+
+
+def _serve_w8a8_session(base: list, scales: str, video, smi: str):
+    """``serve --quant-scales`` of the run's checkpoint in a process of its
+    own (one slot), one session of ``video`` → the session's masks."""
+    with _serve_subprocess(["--streams", "1", "--chunk", "16", "--quant-scales", scales]
+                           + base, scales + ".serve.err") as first:
+        t0 = time.perf_counter()
+        masks = _one_session((first["host"], first["port"]), video)
+        print(f"cli serve --quant-scales (subprocess) on {smi}: one session of "
+              f"{len(video)} frames in {time.perf_counter() - t0:.2f} s; {json.dumps(first)}")
+    return masks
+
+
+def phase_quant_cli(device, info: dict, ctx: dict) -> dict:
+    """W8A8 through the command line on ``phase_cli``'s run (ts8_256, its
+    checkpoint): ``quant --check --device cuda``, then ``stream-eval``,
+    ``parity --ablate``, ``export`` + ``infer --artifact`` and ``serve`` (a
+    subprocess, one session), each with ``--quant-scales``.  The W8A8
+    artifact's step equals the eager W8A8 model's; the artifact's and the
+    server's masks agree with ``stream_video`` of the eager W8A8 model.
+    Returns the forward launches counted in this process."""
+    import numpy as np
+    import torch
+    from gdkvm_tpu_torch import cli
+    from gdkvm_tpu_torch.config.schema import load_config
+    from gdkvm_tpu_torch.eval.infer import load_frames
+    from gdkvm_tpu_torch.eval.streaming import stream_video
+    from gdkvm_tpu_torch.io.export import load_artifact
+    from gdkvm_tpu_torch.models.gdkvm import StreamState
+    from gdkvm_tpu_torch.ops import quant
+
+    smi, base = info["smi"], ctx["base"]
+    size = load_config(base[1], base[2:]).data.image_size
+    tmp = _scratch_dir("quant")
+    scales = os.path.join(tmp, "scales.json")
+    launches = 0
+    _reset_counts()
+    res = _cli(["quant", "--check", "--device", "cuda", "--out", scales] + base)[-1]
+    launches += _only_forward_launches("quant --check")
+    print(f"cli quant --check on {smi}: {json.dumps(res)}")
+    table = quant.load_scales(scales)
+    if res["n_convs"] != len(table) or not all(k.startswith("encoder/") for k in table) \
+            or res["check"]["fps_w8a8"] is None:
+        raise AssertionError(f"quant: {res}")
+
+    streamed = _cli(["stream-eval", "--quant-scales", scales, "--streams", "8",
+                     "--video-len", "64"] + base)[-1]
+    launches += _only_forward_launches("stream-eval --quant-scales")
+    print(f"cli stream-eval --quant-scales --streams 8 on {smi}: {json.dumps(streamed)}")
+    abl = _cli(["parity", "--ablate", "--ablate-videos", "1", "--ablate-video-len", "8",
+                "--quant-scales", scales] + base)[-1]
+    launches += _only_forward_launches("parity --ablate --quant-scales")
+    print("cli parity --ablate --quant-scales: memory deltas " + " ".join(
+        f"{k[13:]} {v:+.4f}" for k, v in abl.items() if k.startswith("memory_delta")))
+
+    art = os.path.join(tmp, "artifact")
+    exported = _cli(["export", "--out", art, "--batch", "1", "--quant-scales", scales]
+                    + base)[-1]
+    print(f"cli export --quant-scales: {json.dumps(exported)}")
+    sm = load_artifact(art)
+    n_mm = sum("_int_mm" in str(n.target) for n in sm.program.graph.nodes)
+    if exported["platforms"] != [device.type] or n_mm != len(table):
+        raise AssertionError(f"W8A8 export: {exported}, {n_mm} int8 products in the graph")
+    model, _ = cli._load_model(load_config(base[1], base[2:]), None, device, "checking")
+    qmodel = quant.w8a8_model(model, table)
+    gen = torch.Generator().manual_seed(13)
+    mem, seen = sm.init_state()
+    state = StreamState(mem=mem, frames_seen=seen)
+    worst = 0.0
+    with torch.inference_mode():
+        for _ in range(2):
+            u8 = torch.randint(0, 256, (1, 16, size, size, 1), generator=gen,
+                               dtype=torch.uint8).to(device)
+            logits, mem, seen = sm.step(u8, mem, seen)
+            want, state = qmodel(u8.to(torch.float32) / 255.0, state)
+            worst = max(worst, _rel(logits, want), _rel(mem, state.mem))
+    print(f"W8A8 artifact: {n_mm} aten._int_mm nodes; two carried chunks against the eager "
+          f"W8A8 model, worst max|Δ|/max| | {worst:.3e} (bar {EXPORT_REL:g})")
+    if not worst <= EXPORT_REL:
+        raise AssertionError(f"W8A8 artifact against the eager W8A8 model: {worst}")
+    out_dir = os.path.join(tmp, "infer_artifact")
+    _cli(["infer", "--input", ctx["source"], "--out", out_dir, "--artifact", art] + base)
+    launches += _only_forward_launches("export, the artifact's steps, infer --artifact")
+    video = load_frames(ctx["source"], size)
+    with torch.inference_mode():
+        want = stream_video(qmodel, video, chunk=16)
+    got = np.load(os.path.join(out_dir, "masks.npz"))["masks"]
+    agree_art = float((got == want).mean()) if got.shape == want.shape else 0.0
+    served = _serve_w8a8_session(base, scales, video, smi)
+    agree_srv = float((served == want).mean()) if served.shape == want.shape else 0.0
+    _reset_counts()
+    print(f"W8A8 masks against stream_video of the eager W8A8 model: infer --artifact "
+          f"{agree_art:.6f}, serve --quant-scales {agree_srv:.6f} (bar {MASK_AGREE})")
+    if agree_art < MASK_AGREE or agree_srv < MASK_AGREE:
+        raise AssertionError("W8A8 masks of the artifact or the server differ")
+    return {"fwd": launches}
+
+
+def phase_bench_all(device, info: dict) -> dict:
+    """``python -m gdkvm_tpu_torch bench --mode all --device cuda`` through
+    ``cli.main``: exit 0 (no errored section), an artifact that passes
+    ``validate_artifact``, each section's headline number (quant_ab's are
+    the W8A8 and bf16 forward times and peaks of this script).  Returns the
+    launches, less the kernel's in gdr_kernel_ab (an A/B of the kernel
+    against its plain version)."""
+    from gdkvm_tpu_torch.eval import regression
+    out = os.path.join(_scratch_dir("bench_all"), "bench_all.json")
+    _reset_counts()
+    t0 = time.perf_counter()
+    art = _cli(["bench", "--mode", "all", "--device", device.type, "--out", out])[-1]
+    dt = time.perf_counter() - t0
+    counts = _read_counts()
+    _reset_counts()
+    regression.validate_artifact(art)
+    if regression.failed_sections(art) or art["platform"] != "cuda":
+        raise AssertionError(f"bench --mode all: errored {regression.failed_sections(art)}")
+    secs = art["sections"]
+    for arm in art["arms"]:
+        rows = {k: r for k, r in secs["quant_ab"][arm].items() if isinstance(r, dict)}
+        print(f"bench all [{arm}] on {info['smi']}: serve_112 "
+              f"{secs['serve_112'][arm]['frames_per_sec']:.1f} f/s, serve_256 "
+              f"{secs['serve_256'][arm]['frames_per_sec']:.1f} f/s, train_step "
+              f"{secs['train_step'][arm]['steps_per_sec']:.3f} steps/s, quant_ab " + ", ".join(
+                  f"{k} bf16 {r['fwd_ms_bf16']:.3f} / W8A8 {r['fwd_ms_w8a8']:.3f} ms "
+                  f"(peak {r['peak_mb_bf16']:.0f} / {r['peak_mb_w8a8']:.0f} MB)"
+                  for k, r in rows.items())
+              + f", serve_bench {secs['serve_bench'][arm]['frames_per_sec']:.1f} f/s "
+              f"(p50 {secs['serve_bench'][arm]['request_latency_ms_p50']:.2f} ms)")
+    for shape, row in secs["gdr_kernel_ab"].items():
+        print(f"bench all gdr_kernel_ab [{shape}]: kernel {row['kernel_ms']:.4f} ms, chunked "
+              f"{row['chunked_ms']:.4f} ms ({row['speedup']:.2f}x)")
+    print(f"bench all: reps {art['reps']}, elapsed {art['elapsed_sec']} s in the artifact, "
+          f"{dt:.1f} s with its write; counts {counts}")
+    print("bench all artifact: " + json.dumps(art, sort_keys=True))
+    # gdr_kernel_ab times each side reps calls after 3 warm-up calls, twice
+    # a shape; its chunked side is the only plain GDR of the run, so the
+    # kernel's A/B launches equal the plain calls counted.
+    ab = counts["plain_fwd"]
+    if ab != 2 * (art["reps"] + 3) * len(secs["gdr_kernel_ab"]) \
+            or not (counts["fwd_kernel"] - ab > counts["residual_fwd"] > 0) \
+            or counts["stored_bwd"] != counts["residual_fwd"] or counts["bwd_kernel"] \
+            or counts["plain_chain"] or counts["plain_bwd"]:
+        raise AssertionError(f"bench all counts {counts}")
+    return {"fwd": counts["fwd_kernel"] - ab - counts["residual_fwd"],
+            "residual": counts["residual_fwd"]}
 
 
 # ------------------------------------------------------ distribution
@@ -2800,6 +3146,9 @@ def main() -> int:
     gdn2 = timed(phase_gdn2, device)
     stream_eval_launches = timed(phase_stream_eval, device)
     cli_launches = timed(phase_cli, device, info, run["roots"])
+    quant_model = timed(phase_quant_model, device, info)
+    quant_cli = timed(phase_quant_cli, device, info, cli_launches)
+    timed(phase_assoc, device, info)
     dist = timed(phase_distributed, device, info, run["roots"], serve)
     fixed = timed(phase_train_times, device)
     print("training steps/s: " + ", ".join(
@@ -2810,6 +3159,7 @@ def main() -> int:
     fwd_times = timed(phase_gdr_times, device)
     times = timed(phase_train_kernel_times, device)
     chain_times = timed(phase_chain_times, device)
+    bench = timed(phase_bench_all, device, info)
     src = "gdkvm_tpu_torch/csrc/"
     # No one PyTorch call computes a GDR scan: no library yardstick.
     print(json.dumps({"kernels": [
@@ -2817,13 +3167,15 @@ def main() -> int:
          "replaces": "gdkvm_tpu/ops/gdr_pallas.py:513",
          "launches": stream["launches"] + serve["fwd_launches"] + export["fwd"]
          + train_launches["fwd"] + run["launches"]["fwd"] + gdn2["fwd"]
-         + stream_eval_launches + cli_launches["fwd"] + dist["fwd"],
+         + stream_eval_launches + cli_launches["fwd"] + quant_model["fwd"]
+         + quant_cli["fwd"] + dist["fwd"] + bench["fwd"],
          "max_abs_err": err_fwd,
          **fwd_times, "library_ms": None},
         {"name": "gdr_fwd_residuals", "route": "cuda", "source": src + "gdr_fwd.cu",
          "replaces": "gdkvm_tpu/ops/gdr_pallas.py:513",
          "launches": train_launches["residual"] + run["launches"]["residual"]
-         + gdn2["residual"] + cli_launches["residual"] + dist["residual"],
+         + gdn2["residual"] + cli_launches["residual"] + dist["residual"]
+         + bench["residual"],
          "max_abs_err": err_res,
          **times["fwd"], "library_ms": None},
         {"name": "gdr_bwd", "route": "cuda", "source": src + "gdr_bwd.cu",

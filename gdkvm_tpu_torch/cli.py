@@ -14,6 +14,12 @@ its residual-free forward.
 --artifact`` and ``infer --artifact`` load it on ``--device``, which must be
 of that type.
 
+``quant`` calibrates the W8A8 scales of ops/quant.py (``--check``: Dice and
+frames/s in full precision and in W8A8); ``--quant-scales`` runs
+``stream-eval``, ``export``, ``serve`` (checkpoint path) and ``parity`` on
+the W8A8 model.  ``bench --mode all`` writes the regression artifact of
+eval/regression.py.
+
 ``train`` and ``eval`` join the process group that ``torchrun`` (or the
 JAX package's ``GDKVM_*`` variables) describes, one process per card
 (parallel/distributed.py): ``torchrun --nproc_per_node=N -m gdkvm_tpu_torch
@@ -23,10 +29,8 @@ writes.  ``serve --mesh auto|DxM`` splits the slot pool over D devices in
 one process: every visible card for ``--device cuda``, D replicas on the
 one device otherwise.
 
-Not ported, each raising ``NotImplementedError`` with its item of ROADMAP
-Queue 1: ``quant`` and every ``--quant-scales`` (item 9), head parallelism
-(``parallel.model_axis`` > 1, ``--mesh Dx2``; item 7), ``bench --mode all``
-(items 4 and 9).
+Not ported: head parallelism (``parallel.model_axis`` > 1, ``--mesh Dx2``),
+which raises ``NotImplementedError`` citing item 7 of ROADMAP Queue 1.
 """
 
 from __future__ import annotations
@@ -38,9 +42,7 @@ import os
 import sys
 
 _NOT_PORTED = {
-    4: "item 4: the port's benchmark entry",
     7: "item 7: head parallelism",
-    9: "item 9: ops/quant.py, eval/regression.py",
 }
 
 
@@ -123,6 +125,15 @@ def _load_model(cfg, checkpoint, device, action: str, require: bool = False):
     return model.eval(), step
 
 
+def _w8a8(model, scales_path):
+    """``model`` as it is, or its W8A8 copy with the scales of
+    ``scales_path`` (``--quant-scales``)."""
+    if not scales_path:
+        return model
+    from gdkvm_tpu_torch.ops import quant
+    return quant.w8a8_model(model, quant.load_scales(scales_path))
+
+
 def cmd_train(argv) -> int:
     from gdkvm_tpu_torch.config.schema import load_config
     from gdkvm_tpu_torch.train.loop import train
@@ -185,13 +196,40 @@ def cmd_bench(argv) -> int:
     p.add_argument("--out", default="bench_all.json",
                    help="all mode: consolidated artifact path")
     p.add_argument("--smoke", action="store_true",
-                   help="all mode: tiny shapes/model")
+                   help="all mode: tiny shapes/model (a CPU contract run)")
     _add_device(p)
     args = p.parse_args(flags)
 
     if args.mode == "all":
-        raise _not_ported("bench --mode all (the regression artifact of "
-                          "eval/regression.py)", 4, 9)
+        # The artifact measures fixed shapes (that is the point of a
+        # regression artifact): a shape or config flag would be ignored,
+        # so it is refused.
+        unused = [flag for flag, passed in (
+            ("--config", args.config is not None),
+            ("--chunk", args.chunk != 16), ("--batch", args.batch != 1),
+            ("--image-size", args.image_size != 112),
+            ("--grad", args.grad)) if passed]
+        if overrides:
+            unused.append("dotted config overrides")
+        if unused:
+            p.error(f"--mode all ignores {', '.join(unused)}: the "
+                    f"artifact's shapes are fixed by the schema "
+                    f"(eval/regression.py)")
+        from gdkvm_tpu_torch.eval.regression import (bench_all, failed_sections,
+                                                     validate_artifact,
+                                                     write_artifact)
+        artifact = bench_all(_device(args.device), smoke=args.smoke)
+        validate_artifact(artifact)
+        write_artifact(artifact, args.out)
+        print(json.dumps(artifact))
+        failed = failed_sections(artifact)
+        if failed and not args.smoke:
+            # Fault isolation keeps one broken section from killing the
+            # artifact, but a run with errored sections must not exit 0.
+            print(f"bench --mode all: {len(failed)} section(s) errored: "
+                  f"{', '.join(failed)}", file=sys.stderr)
+            return 1
+        return 0
 
     cfg = load_config(args.config, overrides)
     device = _device(args.device)
@@ -267,13 +305,13 @@ def cmd_stream_eval(argv) -> int:
                         "(fg IoU between consecutive frames, flicker "
                         "rate; single-stream mode only)")
     p.add_argument("--quant-scales", default=None,
-                   help="W8A8 scales JSON (not ported)")
+                   help="W8A8 scales JSON from `quant`: evaluate the "
+                        "quantized serving path")
     _add_device(p)
     args = p.parse_args(flags)
-    if args.quant_scales:
-        raise _not_ported("--quant-scales (W8A8 serving)", 9)
     cfg = load_config(args.config, overrides)
     model, _ = _load_model(cfg, args.checkpoint, _device(args.device), "scoring")
+    model = _w8a8(model, args.quant_scales)
     with torch.inference_mode():
         out = stream_evaluate(cfg, model, num_videos=args.num_videos,
                               video_len=args.video_len,
@@ -287,8 +325,94 @@ def cmd_stream_eval(argv) -> int:
 
 
 def cmd_quant(argv) -> int:
-    """Calibrate W8A8 activation scales (not ported)."""
-    raise _not_ported("quant (W8A8 calibration)", 9)
+    """Calibrate W8A8 activation scales for quantized serving
+    (ops/quant.py), optionally with a measured quality check.
+
+    W8A8 adds launches around each int8 product, so whether it pays is a
+    measurement per card and shape, and its quality one per checkpoint:
+    calibrate, then ``--check``, never enable blind.
+    """
+    import numpy as np
+    import torch
+    from gdkvm_tpu_torch.config.schema import load_config
+    from gdkvm_tpu_torch.ops import quant
+
+    flags, overrides = _split_args(argv)
+    p = argparse.ArgumentParser(prog="gdkvm quant")
+    p.add_argument("--config", default=None)
+    p.add_argument("--checkpoint", default=None)
+    p.add_argument("--out", default=None,
+                   help="scales JSON (default <run_dir>/quant_scales.json)")
+    p.add_argument("--scope", default="encoder", choices=list(quant.SCOPES),
+                   help="which convs to calibrate")
+    p.add_argument("--calib-clips", type=int, default=4)
+    p.add_argument("--method", default="absmax", choices=list(quant.METHODS),
+                   help="activation-range statistic: absmax (exact) or "
+                        "percentile (robust to speckle outliers)")
+    p.add_argument("--percentile", type=float, default=99.9,
+                   help="percentile of |x| when --method percentile")
+    p.add_argument("--check", action="store_true",
+                   help="run streaming eval full-precision vs w8a8 and "
+                        "report the Dice delta + throughput both ways")
+    p.add_argument("--num-videos", type=int, default=4)
+    p.add_argument("--video-len", type=int, default=64)
+    _add_device(p)
+    args = p.parse_args(flags)
+    cfg = load_config(args.config, overrides)
+    model, _ = _load_model(cfg, args.checkpoint, _device(args.device),
+                           "calibrating")
+
+    # Calibration clips: the configured dataset's val clips where it is
+    # mounted, else the synthetic generator (stream_evaluate's fallback).
+    s, k = cfg.data.image_size, cfg.model.num_classes
+    batches = []
+    if cfg.data.dataset != "synthetic":
+        try:
+            from gdkvm_tpu_torch.data.pipeline import make_dataset
+            ds = make_dataset(cfg.data, cfg.data.val_split, k)
+            for i in range(min(args.calib_clips, len(ds))):
+                frames = ds[i][0]                      # (T,H,W,1) uint8
+                batches.append(frames[None].astype(np.float32) / 255.0)
+        except (OSError, ValueError, KeyError, RuntimeError) as exc:
+            print(f"warning: {cfg.data.dataset} calibration clips "
+                  f"unavailable ({exc}); falling back to synthetic",
+                  file=sys.stderr)
+    if not batches:
+        from gdkvm_tpu_torch.data import synthetic
+        for i in range(args.calib_clips):
+            f, _ = synthetic.generate_video(7000 + i, cfg.data.clip_len, s, s,
+                                            k, cfg.data.synth_difficulty)
+            batches.append(f[None].astype(np.float32) / 255.0)
+
+    with torch.inference_mode():
+        scales = quant.calibrate_act_scales(model, batches, scope=args.scope,
+                                            method=args.method,
+                                            percentile=args.percentile)
+    out_path = args.out or os.path.join(cfg.runtime.run_dir,
+                                        "quant_scales.json")
+    os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
+    quant.save_scales(out_path, scales)
+    result = {"scales": out_path, "n_convs": len(scales),
+              "scope": args.scope, "method": args.method}
+
+    if args.check:
+        from gdkvm_tpu_torch.eval.streaming import stream_evaluate
+        qmodel = quant.w8a8_model(model, scales)
+        kw = dict(num_videos=args.num_videos, video_len=args.video_len,
+                  streams=cfg.eval_stage.streams)
+        with torch.inference_mode():
+            fp = stream_evaluate(cfg, model, **kw)
+            q8 = stream_evaluate(cfg, qmodel, **kw)
+        result["check"] = {
+            "dice_fg_fp": fp.get("dice_fg_mean"),
+            "dice_fg_w8a8": q8.get("dice_fg_mean"),
+            "dice_fg_delta": (None if "dice_fg_mean" not in fp else
+                              q8["dice_fg_mean"] - fp["dice_fg_mean"]),
+            "fps_fp": fp.get("stream_frames_per_sec"),
+            "fps_w8a8": q8.get("stream_frames_per_sec"),
+        }
+    print(json.dumps(result))
+    return 0
 
 
 def cmd_scale(argv) -> int:
@@ -533,14 +657,14 @@ def cmd_export(argv) -> int:
                    help="the one device type to export for (cuda or cpu, "
                         "--device's); a list of more than one raises")
     p.add_argument("--quant-scales", default=None,
-                   help="W8A8 scales JSON (not ported)")
+                   help="W8A8 scales JSON from `quant`: bake the quantized "
+                        "conv path into the artifact")
     _add_device(p)
     args = p.parse_args(flags)
-    if args.quant_scales:
-        raise _not_ported("--quant-scales (a W8A8 artifact)", 9)
     cfg = load_config(args.config, overrides)
     model, _ = _load_model(cfg, args.checkpoint, _device(args.device),
                            "exporting")
+    model = _w8a8(model, args.quant_scales)
     platforms = args.platforms.split(",") if args.platforms else None
     meta = save_artifact(args.out, model,
                          image_size=args.image_size or cfg.data.image_size,
@@ -632,7 +756,8 @@ def cmd_serve(argv) -> int:
     p.add_argument("--no-pack", action="store_true",
                    help="disable bit-packed mask fetch (debugging)")
     p.add_argument("--quant-scales", default=None,
-                   help="W8A8 scales JSON (not ported)")
+                   help="W8A8 scales JSON from `quant`: serve the quantized "
+                        "conv path (checkpoint path only)")
     p.add_argument("--mesh", default=None,
                    help="split the slot pool over devices: 'auto' (config "
                         "parallel.{data_axis,model_axis}) or 'DxM', e.g. 2x1; "
@@ -642,11 +767,12 @@ def cmd_serve(argv) -> int:
     args = p.parse_args(flags)
     cfg = load_config(args.config, overrides)
     mesh_shape = None
-    if args.mesh:
-        if args.artifact:
-            print("error: --mesh applies to the checkpoint path; an artifact "
-                  "is lowered for one device", file=sys.stderr)
+    for flag, value in (("--mesh", args.mesh), ("--quant-scales", args.quant_scales)):
+        if args.artifact and value:
+            print(f"error: {flag} applies to the checkpoint path; an artifact "
+                  f"is an already-lowered program for one device", file=sys.stderr)
             return 2
+    if args.mesh:
         if args.mesh == "auto":
             mesh_shape = (cfg.parallel.data_axis, cfg.parallel.model_axis)
         else:
@@ -660,8 +786,6 @@ def cmd_serve(argv) -> int:
         if mesh_shape[1] != 1:
             raise _not_ported(f"--mesh {args.mesh} (model axis "
                               f"{mesh_shape[1]}: the LKVA heads over devices)", 7)
-    if args.quant_scales:
-        raise _not_ported("--quant-scales (W8A8 serving)", 9)
     streams = args.streams or max(cfg.eval_stage.streams, 1)
     chunk = args.chunk or cfg.eval_stage.stream_chunk
     device = _device(args.device)
@@ -676,7 +800,8 @@ def cmd_serve(argv) -> int:
                                 **ekw)
     else:
         model, _ = _load_model(cfg, args.checkpoint, device, "serving")
-        engine = BatchingEngine(model=model, image_size=cfg.data.image_size,
+        engine = BatchingEngine(model=_w8a8(model, args.quant_scales),
+                                image_size=cfg.data.image_size,
                                 **ekw)
     srv = make_server(engine, args.host, args.port)
     print(json.dumps({"serving": True,
@@ -812,13 +937,14 @@ def cmd_parity(argv) -> int:
     p.add_argument("--ablate-videos", type=int, default=8)
     p.add_argument("--ablate-video-len", type=int, default=64)
     p.add_argument("--quant-scales", default=None,
-                   help="W8A8 scales JSON (not ported)")
+                   help="W8A8 scales JSON from `quant`: score the quantized "
+                        "serving path (e.g. --ablate to check the memory's "
+                        "robustness survives quantization)")
     _add_device(p)
     args = p.parse_args(flags)
-    if args.quant_scales:
-        raise _not_ported("--quant-scales (W8A8 serving)", 9)
     cfg = load_config(args.config, overrides)
     model, _ = _load_model(cfg, args.checkpoint, _device(args.device), "scoring")
+    model = _w8a8(model, args.quant_scales)
 
     protocol = args.protocol
     if protocol == "auto":

@@ -46,12 +46,15 @@ class ModelConfig:
     compute_dtype: str = "bfloat16"
     param_dtype: str = "float32"
     # GDR scan: "auto" (CUDA kernel for CUDA tensors, chunked for CPU
-    # tensors) | "pallas" (force the kernel) | "chunked" | "ref".
+    # tensors) | "pallas" (force the kernel) | "chunked" | "assoc" (the
+    # log-depth scan of affine maps) | "ref".
     gdr_impl: str = "auto"
     # "gdn": the coupled rule (η = β); "gdn2": a separate learned erase gate
     # η per token and head.
     gdr_variant: str = "gdn"
-    quant: str = "none"                # quantized serving is not ported
+    # "none", or "w8a8-<digest>" for a W8A8 model, which carries its scale
+    # table (ops/quant.py::w8a8_model sets the tag).
+    quant: str = "none"
 
 
 @dataclass

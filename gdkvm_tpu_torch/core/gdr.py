@@ -19,6 +19,8 @@ Port of gdkvm_tpu/core/gdr.py.  Per (batch, head) the state
 - :func:`gdr_chain` — the per-frame chain alone, given the batched solves'
   U and W: the plain version of the CUDA chain kernel
   (``GDKVM_GDR_FWD=chain``).
+- :func:`gdr_assoc` — the frame recurrence as a log-depth scan of affine
+  maps (``gdr_impl="assoc"``).
 - :func:`gdr_bwd_ref` — the backward as a reverse scan applying
   :func:`frame_adjoint` frame by frame: the plain version of the CUDA
   backward kernel.  :func:`gdr_bwd_stored` — the same adjoint from the
@@ -169,6 +171,40 @@ def gdr_chunked(q: Tensor, k: Tensor, v: Tensor, beta: Tensor, alpha: Tensor,
     """Chunk-form scan: batched WY solves, then three products per frame."""
     o, s_t, _, _, _ = gdr_chunked_residuals(q, k, v, beta, alpha, s0, eta)
     return o, s_t
+
+
+def gdr_assoc(q: Tensor, k: Tensor, v: Tensor, beta: Tensor, alpha: Tensor,
+              s0: Tensor, eta: Optional[Tensor] = None
+              ) -> Tuple[Tensor, Tensor]:
+    """Parallel-scan GDR: the frame recurrence as a scan of affine maps.
+
+    With each frame's WY solve (U_t, W_t) in hand the state transition is
+    affine, ``S_t = M_t S_{t-1} + b_t`` with ``M_t = α_t (I − K_tᵀ W_t)``
+    (d_k × d_k) and ``b_t = K_tᵀ U_t``.  Affine maps compose associatively
+    (g after f: ``(M_g M_f, M_g b_f + b_g)``), so every prefix comes out of
+    log₂(T) levels of batched products (a Hillis–Steele scan over T,
+    written in plain torch: torch has no stable ``associative_scan``).
+    Autograd carries the gradient.  Port of ``gdr_assoc``
+    (gdkvm_tpu/core/gdr.py); returns (o, s_T) fp32.
+    """
+    u, w = wy_transform(k, v, beta, eta)               # (B,H,T,N,dv), (…,dk)
+    k32, a32 = _f32(k), _f32(alpha)
+    eye = torch.eye(k.shape[-1], dtype=torch.float32, device=k.device)
+    m = a32[..., None, None] * (eye - k32.transpose(-1, -2) @ w)  # (B,H,T,dk,dk)
+    bv = k32.transpose(-1, -2) @ u                                # (B,H,T,dk,dv)
+    n_t, step = q.shape[2], 1
+    while step < n_t:
+        # Prefix t composes with the prefix ending at t − step.
+        m_prev, b_prev = m[:, :, :-step], bv[:, :, :-step]
+        m_cur, b_cur = m[:, :, step:], bv[:, :, step:]
+        m = torch.cat([m[:, :, :step], m_cur @ m_prev], dim=2)
+        bv = torch.cat([bv[:, :, :step], m_cur @ b_prev + b_cur], dim=2)
+        step *= 2
+    s0 = _f32(s0)
+    s_all = m @ s0[:, :, None] + bv                               # S_t, all t
+    s_prev = torch.cat([s0[:, :, None], s_all[:, :, :-1]], dim=2)
+    o = _f32(q) @ (a32[..., None, None] * s_prev)
+    return o, s_all[:, :, -1]
 
 
 # ---------------------------------------------------------------------------

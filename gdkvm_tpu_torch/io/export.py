@@ -3,7 +3,8 @@
 
 The artifact is the streaming step — uint8 frames in, mask logits and the
 carried memory state out — as an ``ExportedProgram`` with the trained
-parameters in it.  A consumer needs torch and this package's
+parameters in it (a W8A8 model's int8 weights and scales as buffers, its
+products as ``aten._int_mm`` nodes).  A consumer needs torch and this package's
 ``ops.gdr_cuda`` (which registers the GDR forward as the custom op
 ``gdkvm_tpu_torch::gdr_fwd``), but none of the model code: the recurrence
 is frozen into the program's graph, where the GDR is one node.
@@ -40,6 +41,7 @@ from gdkvm_tpu_torch.models.gdkvm import GDKVM, StreamState
 # Registers torch.ops.gdkvm_tpu_torch.gdr_fwd, which the program calls:
 # torch.export.load cannot read a program whose ops are not registered.
 from gdkvm_tpu_torch.ops import gdr_cuda  # noqa: F401
+from gdkvm_tpu_torch.ops import quant
 
 Tensor = torch.Tensor
 
@@ -97,6 +99,7 @@ def export_streaming(model: GDKVM, *, image_size: int, chunk: int = 16,
                     dtype=torch.float32, device=device),
         torch.zeros((batch,), dtype=torch.int32, device=device),
     )
+    quant.refresh_w8a8(model)         # a W8A8 model's int8 weights, current
     with torch.no_grad():
         return torch.export.export(StreamingStep(model.eval()), args)
 

@@ -5,13 +5,17 @@ gdkvm_tpu/models/gdkvm.py).
 returns ``(logits (B, T, H, W, K) fp32, StreamState)``.  Streaming is
 successive calls with the returned state; an optional prompt mask is written
 into the memory before the chunk's first frame.
+
+A W8A8 model (``cfg.quant = "w8a8-<digest>"``) carries its scale table and
+runs its calibrated convs int8 (ops/quant.py); ``ops.quant.w8a8_model``
+builds one from a float model.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -23,6 +27,7 @@ from gdkvm_tpu_torch.models.decoder import Decoder, resize_bilinear
 from gdkvm_tpu_torch.models.encoder import Encoder
 from gdkvm_tpu_torch.models.layers import BareKernel, Conv, Dense, RMSNorm
 from gdkvm_tpu_torch.models.lkva import LKVAMemory
+from gdkvm_tpu_torch.ops import quant
 from gdkvm_tpu_torch.ops.norms import GroupNorm
 
 Tensor = torch.Tensor
@@ -42,16 +47,22 @@ class GDKVM(nn.Module):
     """Echocardiography video segmentation with gated delta-rule KV memory."""
 
     def __init__(self, cfg: ModelConfig,
-                 device: torch.device | str | None = None) -> None:
+                 device: torch.device | str | None = None,
+                 quant_scales: Optional[Mapping[str, float]] = None) -> None:
+        """``quant_scales``: the W8A8 scale table {flax conv path: input
+        scale}, with ``cfg.quant`` its ``quant.quant_tag``; a ``w8a8-`` tag
+        without its table raises."""
         super().__init__()
         if cfg.mem_stride != 16:
             raise ValueError(
                 f"model.mem_stride={cfg.mem_stride} is not supported: the "
                 f"memory reads the encoder's deepest scale, stride 16")
-        if cfg.quant != "none":
-            raise NotImplementedError(
-                f"quant={cfg.quant!r} is not ported (ROADMAP Queue 1, item 9: "
-                f"ops/quant.py)")
+        want = "none" if quant_scales is None else quant.quant_tag(quant_scales)
+        if cfg.quant != want:
+            raise ValueError(
+                f"quant={cfg.quant!r} does not match the scale table given "
+                f"({want!r}): build a W8A8 model with ops.quant.w8a8_model("
+                f"model, load_scales(path)), which sets the tag")
         if cfg.param_dtype != "float32":
             raise ValueError(f"param_dtype must be float32, got {cfg.param_dtype!r}")
         self.cfg = cfg
@@ -66,6 +77,14 @@ class GDKVM(nn.Module):
                                gdr_variant=cfg.gdr_variant, device=device)
         self.decoder = Decoder(tuple(cfg.kpff_channels), tuple(cfg.enc_channels),
                                c16, cfg.num_classes, dtype=dt, device=device)
+        if quant_scales is not None:
+            convs = quant.eligible_convs(self)
+            unknown = sorted(set(quant_scales) - set(convs))
+            if unknown:
+                raise ValueError(f"scales name no eligible conv of this model: "
+                                 f"{unknown}")
+            for path, s in quant_scales.items():
+                convs[path].set_act_scale(s)
 
     def init_state(self, batch: int, device: torch.device | str) -> StreamState:
         c = self.cfg

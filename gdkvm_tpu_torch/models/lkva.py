@@ -26,6 +26,7 @@ GDR_IMPLS = {
     "auto": gdr_cuda.gdr_fwd,        # kernel for CUDA tensors, chunked on CPU
     "pallas": gdr_cuda.gdr_kernel,    # the kernels, or raise
     "chunked": gdr.gdr_chunked,
+    "assoc": gdr.gdr_assoc,
     "ref": gdr.gdr_ref,
 }
 
@@ -45,10 +46,6 @@ class LKVAMemory(nn.Module):
         super().__init__()
         if gdr_variant not in ("gdn", "gdn2"):
             raise ValueError(f"gdr_variant must be gdn|gdn2, got {gdr_variant!r}")
-        if gdr_impl == "assoc":
-            raise NotImplementedError(
-                "gdr_impl='assoc' is not ported (ROADMAP Queue 1, item 2: "
-                "gdr_assoc comes last)")
         if gdr_impl not in GDR_IMPLS:
             raise ValueError(f"gdr_impl must be one of {sorted(GDR_IMPLS)}, "
                              f"got {gdr_impl!r}")

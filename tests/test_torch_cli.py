@@ -98,7 +98,7 @@ NEEDS_DEVICE = [
     ["bench", "--mode", "modules"], ["stream-eval"], ["parity"], ["serve", "--port", "0"],
     ["infer", "--input", "x.avi", "--out", "o"], ["sweep", "learning_rate=1e-4,1e-3"],
     ["export", "--out", "a"], ["serve", "--artifact", "a", "--port", "0"],
-    ["infer", "--artifact", "a", "--input", "x.avi", "--out", "o"]]
+    ["infer", "--artifact", "a", "--input", "x.avi", "--out", "o"], ["quant"]]
 
 
 @pytest.mark.parametrize("argv", NEEDS_DEVICE, ids=lambda a: "-".join(a[:3]))
@@ -125,13 +125,117 @@ NOT_PORTED = [
     (["train", "--device", "cpu", "parallel.model_axis=2"], 7)]
 
 
+@pytest.fixture(scope="module")
+def w8a8_scales(trained, tmp_path_factory):
+    """The run's W8A8 scales, calibrated by ``quant`` on the CPU."""
+    path = str(tmp_path_factory.mktemp("quant") / "scales.json")
+    out = run(["quant", "--device", "cpu", "--calib-clips", "1", "--out", path]
+              + trained[1])[-1]
+    assert out["n_convs"] > 0 and os.path.exists(path)
+    return path
+
+
+def _serve_one_session(monkeypatch, seen, video):
+    """Make ``serve``'s server answer one session, then stop as on SIGINT."""
+    from gdkvm_tpu_torch import serve
+    real = serve.make_server
+
+    def make_server(engine, host, port):
+        srv = real(engine, host, 0)
+
+        def serve_forever():
+            thread = threading.Thread(target=type(srv).serve_forever, args=(srv,))
+            thread.start()
+            client = serve.ServeClient(*srv.server_address)
+            seen["health"] = client.health()
+            client.open()
+            seen["masks"] = client.infer(video)
+            client.close()
+            srv.shutdown()
+            thread.join(timeout=30)
+            raise KeyboardInterrupt
+        srv.serve_forever = serve_forever
+        return srv
+    monkeypatch.setattr(serve, "make_server", make_server)
+
+
 @pytest.mark.parametrize("argv,item", NOT_PORTED, ids=lambda a: "-".join(map(str, a[:3]))
                          if isinstance(a, list) else str(a))
-def test_unported_commands_and_flags_raise_their_item(argv, item, tmp_path, monkeypatch):
+def test_unported_commands_and_flags_raise_their_item(argv, item, tmp_path, monkeypatch,
+                                                      request):
+    """Head parallelism (item 7) raises its item before anything is written.
+    The commands and flags that cited items 4 and 9 are ported: each case
+    now runs on the CPU on the run's model and is held to the library call
+    it stands for.  ``quant`` writes its scales; each ``--quant-scales``
+    command equals the same computation on the eager W8A8 model (export:
+    the artifact's tag and int8 products; serve: the session's masks
+    against ``stream_video``; stream-eval: Dice; parity: the memory
+    deltas of ``memory_ablation``); ``bench --mode all --smoke`` writes a
+    valid artifact; ``bench --mode all`` wants the card and raises without
+    one."""
     monkeypatch.chdir(tmp_path)          # nothing may be written: the raise comes first
-    with pytest.raises(NotImplementedError, match=rf"ROADMAP Queue 1, .*item {item}:"):
-        main(argv)
-    assert not os.listdir(tmp_path)
+    if item == 7:
+        with pytest.raises(NotImplementedError, match=rf"ROADMAP Queue 1, .*item {item}:"):
+            main(argv)
+        assert not os.listdir(tmp_path)
+        return
+    if argv == ["bench", "--mode", "all"]:
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main(argv)
+        return
+    if argv[0] == "bench":
+        from gdkvm_tpu_torch.eval.regression import failed_sections, validate_artifact
+        art = run(argv + ["--device", "cpu", "--out", "b.json"])[-1]
+        validate_artifact(art)
+        assert not failed_sections(art) and art["platform"] == "cpu"
+        assert json.load(open("b.json")) == art
+        return
+    trained = request.getfixturevalue("trained")
+    over = ["--device", "cpu"] + trained[1]
+    if argv[0] == "quant":
+        out = run(argv + ["--calib-clips", "1", "--out", "s.json"] + over)[-1]
+        assert out["n_convs"] > 0 and out["scope"] == "encoder"
+        assert set(json.load(open("s.json"))) and os.path.exists("s.json")
+        return
+    scales = request.getfixturevalue("w8a8_scales")
+    with open(scales) as src, open("s.json", "w") as dst:
+        dst.write(src.read())
+    from gdkvm_tpu_torch.ops import quant
+    model, _ = cli._load_model(schema.load_config(None, trained[1]), None,
+                               torch.device("cpu"), "testing")
+    qmodel = quant.w8a8_model(model, quant.load_scales("s.json"))
+    if argv[0] == "export":
+        from gdkvm_tpu_torch.io.export import load_artifact
+        out = run(argv + ["--chunk", "2"] + over)[-1]
+        sm = load_artifact(out["out"])
+        assert sm.meta["model_config"]["quant"] == qmodel.cfg.quant
+        assert any("_int_mm" in str(n.target) for n in sm.program.graph.nodes)
+    elif argv[0] == "serve":
+        seen = {}
+        video = np.random.default_rng(5).integers(0, 255, (4, IMAGE, IMAGE, 1), np.uint8)
+        _serve_one_session(monkeypatch, seen, video)
+        out = run(argv + ["--port", "0", "--streams", "1", "--chunk", "4"] + over)[-1]
+        assert out["serving"] and seen["health"]["streams"] == 1
+        np.testing.assert_array_equal(seen["masks"], stream_video(qmodel, video, chunk=4))
+    elif argv[0] == "stream-eval":
+        out = run(argv + ["--num-videos", "1", "--video-len", "4"] + over)[-1]
+        from gdkvm_tpu_torch.eval.streaming import stream_evaluate
+        with torch.inference_mode():
+            want = stream_evaluate(schema.load_config(None, trained[1]), qmodel,
+                                       num_videos=1, video_len=4, streams=1)
+        assert out["dice_fg_mean"] == pytest.approx(want["dice_fg_mean"], abs=1e-6)
+    else:                                 # parity
+        out = run(argv + ["--ablate", "--ablate-videos", "1", "--ablate-video-len", "4"]
+                  + over)[-1]
+        from gdkvm_tpu_torch.eval import parity
+        with torch.inference_mode():
+            want = parity.memory_ablation(schema.load_config(None, trained[1]), qmodel,
+                                          num_videos=1, video_len=4)
+        deltas = [k for k in want if k.startswith("memory_delta")]
+        assert deltas and set(deltas) == {k for k in out if k.startswith("memory_delta")}
+        for k in deltas:
+            assert out[k] == pytest.approx(want[k], abs=1e-6), k
 
 
 def _clear_launcher_env(monkeypatch):
@@ -181,7 +285,9 @@ def test_train_in_a_one_rank_process_group(monkeypatch, tmp_path):
 @pytest.mark.parametrize("argv,err", [
     (["serve", "--artifact", "a", "--mesh", "auto"], "applies to the checkpoint path"),
     (["serve", "--mesh", "3"], "must be 'auto' or 'DxM'"),
-], ids=["artifact", "malformed"])
+    (["serve", "--artifact", "a", "--quant-scales", "s.json"],
+     "--quant-scales applies to the checkpoint path"),
+], ids=["artifact", "malformed", "artifact-quant"])
 def test_serve_mesh_flag_errors(argv, err, capsys, tmp_path):
     """As in the JAX package: exit code 2 and the reason on stderr."""
     assert main(argv + [f"runtime.run_dir={tmp_path}"]) == 2

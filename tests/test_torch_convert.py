@@ -151,7 +151,7 @@ def test_port_imports_without_jax():
                  "utils.profiling", "utils.optional", "cli", "__main__",
                  "config.yaml_subset", "eval.infer", "eval.modulebench",
                  "utils.scaling", "ops.gdr_counts", "io.export", "parallel.distributed",
-                 "parallel.mesh"):
+                 "parallel.mesh", "ops.quant", "eval.regression"):
         assert f"gdkvm_tpu_torch.{name}" in mods, name
     res = subprocess.run([sys.executable, "-c", _GUARD, *mods], cwd=REPO,
                          capture_output=True, text=True, timeout=120)

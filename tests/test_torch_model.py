@@ -260,16 +260,24 @@ def test_init_params_follows_reference_initializers():
 @pytest.mark.parametrize("field,value", [
     ("gdr_variant", "gdn3"), ("gdr_impl", "assoc"), ("quant", "w8a8-x")])
 def test_unported_options_raise(field, value):
-    """Options the port does not run raise, naming their ROADMAP item; a
-    variant neither package has is a ValueError, as in the JAX package
-    (gdn2 is ported: tests/test_torch_gdn2.py)."""
+    """A variant neither package has is a ValueError, as in the JAX package
+    (gdn2 is ported: tests/test_torch_gdn2.py); a W8A8 tag without its
+    scale table is refused (ops.quant.w8a8_model makes both).
+    ``gdr_impl="assoc"`` is ported and runs (tests/test_torch_assoc.py)."""
     cfg = dataclasses.replace(ModelConfig(**NARROW), **{field: value})
     if field == "gdr_variant":
         with pytest.raises(ValueError, match="gdn2"):
             GDKVM(cfg, device="cpu")
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        GDKVM(cfg, device="cpu")
+    elif field == "quant":
+        with pytest.raises(ValueError, match="w8a8_model"):
+            GDKVM(cfg, device="cpu")
+    else:
+        model = init_params(GDKVM(cfg, device="cpu"), torch.Generator().manual_seed(0))
+        frames = torch.rand((1, 2, 32, 32, 1), generator=torch.Generator().manual_seed(1))
+        with torch.no_grad():
+            logits, state = model(frames)
+        assert logits.shape == (1, 2, 32, 32, 2) and torch.isfinite(logits).all()
+        assert torch.isfinite(state.mem).all()
 
 
 def test_streaming_step_and_fps_device(pairs):
