@@ -956,16 +956,21 @@ def _batch(cfg, seed: int = 0):
                                seed=seed))
 
 
-def _state(cfg, model_cfg, device, weights=None):
+def _state(cfg, model_cfg, device, weights=None, mesh=None):
+    """A train state of ``model_cfg`` on ``device`` from ``weights`` (whole;
+    default the seeded init); on a process group's ``mesh``, its rank's head
+    shard of them."""
     import torch
     from gdkvm_tpu_torch.models.gdkvm import GDKVM, init_params
+    from gdkvm_tpu_torch.parallel.mesh import shard_state_dict
     from gdkvm_tpu_torch.train.loop import state_for
-    model = GDKVM(model_cfg, device=device)
+    heads = {} if mesh is None else dict(heads=mesh.heads, model_group=mesh.model_group)
+    model = GDKVM(model_cfg, device=device, **heads)
     if weights is None:
         init_params(model, torch.Generator().manual_seed(cfg.train.seed))
     else:
-        model.load_state_dict(weights)
-    return state_for(cfg, model)
+        model.load_state_dict(shard_state_dict(weights, *model.lkva.heads))
+    return state_for(cfg, model, mesh)
 
 
 # One train step, kernel path against the plain chunked path from the same
@@ -1244,7 +1249,7 @@ def phase_serve(device) -> dict:
     refs = [v if v.shape[1:3] == (size, size) else
             resize_u8(torch.from_numpy(v).to(device), (size, size)).cpu().numpy()
             for v in videos]
-    launches, models = {"fwd_kernel": 0, "chain_kernel": 0}, {}
+    launches, models, by_dtype = {"fwd_kernel": 0, "chain_kernel": 0}, {}, {}
     for dtype in ("float32", "bfloat16"):
         os.environ.pop("GDKVM_GDR_FWD", None)     # references: the default split
         model = models[dtype] = _serve_model(device, dtype)
@@ -1260,7 +1265,7 @@ def phase_serve(device) -> dict:
             print(f"[{dtype}] the model's batch-8 stream vs stream_video, per "
                   "session: " + " ".join(f"{x:.6f}" for x in batched))
             bar = min(batched) - BF16_SLACK
-        masks = {}
+        masks = by_dtype[dtype] = {}
         for mode in ("monolith", "chain"):
             os.environ["GDKVM_GDR_FWD"] = mode
             with _served(model) as (engine, addr):
@@ -1298,7 +1303,8 @@ def phase_serve(device) -> dict:
     os.environ.pop("GDKVM_GDR_FWD")
     return {"fwd_launches": launches["fwd_kernel"],
             "chain_launches": launches["chain_kernel"], "model": models["bfloat16"],
-            "masks": masks, "bf16_bar": bar}
+            "masks": masks, "bf16_bar": bar, "model_fp32": models["float32"],
+            "masks_fp32": by_dtype["float32"]}
 
 
 def _bench_sessions(addr, sessions: int, frames: int, per_request: int) -> dict:
@@ -2770,10 +2776,16 @@ def _timed_steps(state, batch, cfg, n: int) -> float:
     return (time.perf_counter() - t0) / n * 1e3
 
 
-def _dist_steps(root: str, device, batch, cfg, model_cfg) -> dict:
+def _layout(mesh) -> str:
+    return f"{mesh.data}x{mesh.model}"
+
+
+def _dist_steps(root: str, device, batch, cfg, model_cfg, mesh) -> dict:
     """DIST_STEPS train steps per backward mode from root/weights.pt on
-    ``batch`` (this process's rows), the counts 0 just before and read just
-    after; the parameters go to root; then DIST_TIMED timed steps."""
+    ``batch`` (this process's rows) with this process's place on ``mesh``,
+    the counts 0 just before and read just after; the parameters (the
+    rank's shard) go to root; then DIST_TIMED timed steps; in a process
+    group, the time of the step's collectives alone."""
     import torch
     from gdkvm_tpu_torch.parallel import distributed
     from gdkvm_tpu_torch.train.loop import train_step
@@ -2781,7 +2793,7 @@ def _dist_steps(root: str, device, batch, cfg, model_cfg) -> dict:
     out = {}
     for mode in ("stored", "fused"):
         os.environ["GDKVM_GDR_BWD"] = mode
-        state = _state(cfg, model_cfg, device, weights)
+        state = _state(cfg, model_cfg, device, weights, mesh)
         _reset_counts()
         metrics = [{k: float(v) for k, v in train_step(state, batch, cfg).items()}
                    for _ in range(DIST_STEPS)]
@@ -2789,64 +2801,133 @@ def _dist_steps(root: str, device, batch, cfg, model_cfg) -> dict:
         counts = _read_counts()
         torch.save({k: v.cpu() for k, v in state.model.state_dict().items()},
                    os.path.join(root, f"params_{mode}_rank{distributed.rank()}"
-                                      f"_of{distributed.world_size()}.pt"))
+                                      f"_of{_layout(mesh)}.pt"))
         out[mode] = {"metrics": metrics, "counts": counts,
                      "step_ms": _timed_steps(state, batch, cfg, DIST_TIMED)}
     os.environ.pop("GDKVM_GDR_BWD")
-    if distributed.in_group():
-        # The step's gradient all-reduce alone: one flat fp32 buffer of
-        # every parameter's gradient.
-        flat = torch.zeros(sum(p.numel() for p in state.opt.params), device=device)
-        distributed.all_reduce_sum([flat])
+
+    def timed(fn) -> float:
+        fn()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(DIST_TIMED):
-            distributed.all_reduce_sum([flat])
+            fn()
         torch.cuda.synchronize()
-        out["all_reduce_ms"] = (time.perf_counter() - t0) / DIST_TIMED * 1e3
+        return (time.perf_counter() - t0) / DIST_TIMED * 1e3
+    if mesh.data_group is not None:
+        # The step's gradient all-reduce alone: one flat fp32 buffer of
+        # every parameter's gradient.
+        flat = torch.zeros(sum(p.numel() for p in state.opt.params), device=device)
+        out["all_reduce_ms"] = timed(lambda: distributed.all_reduce_sum([flat],
+                                                                        mesh.data_group))
         out["all_reduce_mb"] = flat.numel() * 4 / 2**20
+    if mesh.model_group is not None:
+        # The model group's collectives of a step alone: the heads' sum of
+        # the readout, the sum of its input's gradient (both fp32 of the
+        # stride-16 features' shape), the replicated LKVA parameters'
+        # partial gradients and the norm's sum of squares.
+        b, t = batch.frames.shape[:2]
+        side = cfg.data.image_size // 16
+        feats = torch.zeros((b, t, side, side, model_cfg.enc_channels[-1]), device=device)
+        part = torch.zeros(sum(p.numel() for p, f in zip(state.opt.params, state.partial)
+                               if f), device=device)
+        one = torch.zeros((), device=device)
+        group = mesh.model_group
+        out["model_sum_ms"] = timed(lambda: [distributed.all_reduce_sum([x], group)
+                                             for x in (feats, feats, part, one)])
+        out["model_sum_mb"] = (2 * feats.numel() + part.numel() + 1) * 4 / 2**20
     return out
 
 
-def _dist_evaluate(root: str, device, cfg, model_cfg) -> dict:
-    """evaluate from root/weights.pt, counts 0 just before, read after."""
+def _dist_evaluate(root: str, device, cfg, model_cfg, mesh) -> dict:
+    """evaluate from root/weights.pt (the rank's head shard of them) with
+    this process's place on ``mesh``, counts 0 just before, read after."""
     import torch
     from gdkvm_tpu_torch.eval.evaluator import evaluate
-    from gdkvm_tpu_torch.models.gdkvm import GDKVM
-    model = GDKVM(model_cfg, device=device)
-    model.load_state_dict(torch.load(os.path.join(root, "weights.pt"), weights_only=True))
+    weights = torch.load(os.path.join(root, "weights.pt"), weights_only=True)
+    model = _state(cfg, model_cfg, device, weights, mesh).model
     _reset_counts()
     with torch.inference_mode():
-        scores = evaluate(cfg, model.eval(), device)
+        scores = evaluate(cfg, model.eval(), device, mesh=mesh)
     torch.cuda.synchronize()
     return {"scores": scores, "counts": _read_counts()}
 
 
-def _rank_dist(root: str, data_path: str) -> int:
-    """One rank of phase_distributed's two on cuda:0 over gloo (run as
-    ``chip_smoke.py --rank-dist ROOT DATA`` under RANK, WORLD_SIZE,
-    MASTER_ADDR, MASTER_PORT): its rows of the global batch through
-    _dist_steps, then evaluate; writes root/rank{r}.json."""
+def _rank_dist(root: str, data_path: str, *layouts: str) -> int:
+    """One rank of phase_distributed's ranks on cuda:0 over gloo (run as
+    ``chip_smoke.py --rank-dist ROOT DATA DxM...`` under RANK, WORLD_SIZE,
+    MASTER_ADDR, MASTER_PORT), once for each ``DxM`` mesh layout of the
+    group: its data position's rows of the global batch through
+    _dist_steps with its head shard, then evaluate; writes
+    root/rank{r}_of{D}x{M}.json."""
     import numpy as np
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from gdkvm_tpu_torch.data.pipeline import Batch
     from gdkvm_tpu_torch.parallel import distributed
-    from gdkvm_tpu_torch.parallel.mesh import batch_slice
+    from gdkvm_tpu_torch.parallel.mesh import batch_slice, make_mesh
     device = torch.device("cuda:0")
     if not distributed.maybe_initialize_distributed(backend="gloo", device=device):
         raise RuntimeError("--rank-dist: no process group in the environment")
     rank = distributed.rank()
-    cfg, model_cfg = _dist_cfg(data_path, os.path.join(root, "eval_ranks"))
     z = np.load(os.path.join(root, "batch.npz"))
-    rows = batch_slice(rank, z["frames"].shape[0])
-    batch = Batch(*(torch.from_numpy(z[k][rows]).to(device)
-                    for k in ("frames", "masks", "valid")))
-    out = {"backend": torch.distributed.get_backend(), "info": distributed.process_info(),
-           "rows": [rows.start, rows.stop], **_dist_steps(root, device, batch, cfg, model_cfg),
-           "eval": _dist_evaluate(root, device, cfg, model_cfg)}
-    with open(os.path.join(root, f"rank{rank}.json"), "w") as fh:
+    for layout in layouts:
+        mesh = make_mesh(*(int(x) for x in layout.split("x")))
+        cfg, model_cfg = _dist_cfg(data_path, os.path.join(root, f"eval_ranks_{layout}"))
+        rows = batch_slice(mesh, z["frames"].shape[0])
+        batch = Batch(*(torch.from_numpy(z[k][rows]).to(device)
+                        for k in ("frames", "masks", "valid")))
+        out = {"backend": torch.distributed.get_backend(), "info": distributed.process_info(),
+               "rows": [rows.start, rows.stop], "place": [mesh.index, mesh.model_index],
+               **_dist_steps(root, device, batch, cfg, model_cfg, mesh),
+               "eval": _dist_evaluate(root, device, cfg, model_cfg, mesh)}
+        with open(os.path.join(root, f"rank{rank}_of{layout}.json"), "w") as fh:
+            json.dump(out, fh)
+    distributed.shutdown()
+    return 0
+
+
+# (vi): the 2x2 run's steps, its checkpoints, and where one process resumes.
+HEAD_RUN_STEPS, HEAD_RESUME_AT = 4, 2
+
+
+def _head_run_cfg(data_path: str, run_dir: str, **over):
+    """The ts8_256 recipe in fp32 on the packed split for (vi): HEAD_RUN_STEPS
+    steps, a checkpoint every HEAD_RESUME_AT, the eval stage at the end."""
+    cfg, model_cfg = _dist_cfg(data_path, run_dir)
+    cfg.model = model_cfg
+    cfg.eval_stage.hd95 = False
+    t = cfg.train
+    t.num_iterations, t.log_every, t.eval_every = HEAD_RUN_STEPS, 1, HEAD_RUN_STEPS
+    t.checkpoint_every = HEAD_RESUME_AT
+    for k, v in over.items():
+        section, key = k.split(".")
+        setattr(getattr(cfg, section), key, v)
+    return cfg
+
+
+def _rank_train(run_dir: str, data_path: str) -> int:
+    """One rank of (vi): ``train(cfg)`` at data 2 × model 2 on cuda:0 over
+    gloo (``chip_smoke.py --rank-train RUN_DIR DATA``), the counts 0 just
+    before and read just after; writes RUN_DIR/rank{r}.json."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from gdkvm_tpu_torch.parallel import distributed
+    from gdkvm_tpu_torch.train.loop import train
+    device = torch.device("cuda:0")
+    if not distributed.maybe_initialize_distributed(backend="gloo", device=device):
+        raise RuntimeError("--rank-train: no process group in the environment")
+    rank = distributed.rank()
+    cfg = _head_run_cfg(data_path, run_dir, **{"parallel.data_axis": 2,
+                                               "parallel.model_axis": 2})
+    _reset_counts()
+    final = train(cfg, device=device)
+    torch.cuda.synchronize()
+    out = {"final": final, "counts": _read_counts()}
+    distributed.barrier("rank-train done")
+    with open(os.path.join(run_dir, f"rank{rank}.json"), "w") as fh:
         json.dump(out, fh)
     distributed.shutdown()
     return 0
@@ -2907,7 +2988,7 @@ def _run_ranks(cmd: list, n: int, what: str) -> list:
 
 
 def phase_distributed(device, info: dict, roots: dict, served: dict) -> dict:
-    """Data-parallel training, eval and serving over devices (the
+    """Training, eval and serving over a data × model mesh of devices (the
     distribution main path), on the one card:
 
     (i) ``python -m torch.distributed.run --standalone --nproc_per_node=1``
@@ -2921,9 +3002,25 @@ def phase_distributed(device, info: dict, roots: dict, served: dict) -> dict:
         all-reduce's;
     (iii) the same ranks' evaluate against one process;
     (iv) phase_serve's 8 sessions through a data=2 mesh of [cuda:0, cuda:0]
-        in both forward splits, against the model engine's masks.
+        in both forward splits, against the model engine's masks;
+    (v) the ranks of (ii) as data 1 × model 2 (ts8's 4 LKVA
+        heads, 2 a rank), the steps of (ii) on the whole batch a rank, held
+        to one process (losses, gathered parameters, gradient norms; the
+        replicated parameters bitwise equal on both ranks), with evaluate;
+        each rank's step against one process's and the model group's
+        collectives alone;
+    (vi) four ranks as data 2 × model 2: ``train(cfg)`` HEAD_RUN_STEPS
+        steps with a checkpoint every HEAD_RESUME_AT; one process restores
+        its step-HEAD_RESUME_AT checkpoint and continues to the same step,
+        held to the 2x2 run;
+    (vii) phase_serve's 8 sessions through 1x2 and 2x2 meshes of cuda:0 in
+        one process (the heads of each slot group over the row), in both
+        forward splits, fp32 and bf16, against the one-device engine's
+        masks, and frames/s beside the one-device engine's in the same call;
+    (viii) the kernels at a head shard's shape (H=2) against their plain
+        versions, timed beside their bounds.
 
-    Returns the launches by kernel."""
+    Returns the launches by kernel and (viii)'s results."""
     import numpy as np
     import torch
     from gdkvm_tpu_torch.parallel.mesh import make_mesh
@@ -2971,26 +3068,29 @@ def phase_distributed(device, info: dict, roots: dict, served: dict) -> dict:
     np.savez(os.path.join(tmp, "batch.npz"), frames=batch.frames, masks=batch.masks,
              valid=batch.valid)
     from gdkvm_tpu_torch.data.pipeline import Batch
+    alone = make_mesh(1, 1, devices=[device])
     one = _dist_steps(tmp, device, Batch(*(torch.from_numpy(np.asarray(x)).to(device)
                                            for x in (batch.frames, batch.masks, batch.valid))),
-                      cfg, model_cfg)
-    one_eval = _dist_evaluate(tmp, device, cfg, model_cfg)
+                      cfg, model_cfg, alone)
+    one_eval = _dist_evaluate(tmp, device, cfg, model_cfg, alone)
     t0 = time.perf_counter()
+    # The same two processes run (ii)-(iii) as data 2 x model 1, then (v) as
+    # data 1 x model 2.
     _run_ranks([sys.executable, os.path.abspath(__file__), "--rank-dist", tmp,
-                roots["packed"]], 2, "two ranks on cuda:0")
+                roots["packed"], "2x1", "1x2"], 2, "two ranks on cuda:0")
     ranks_s = time.perf_counter() - t0
-    ranks = [json.load(open(os.path.join(tmp, f"rank{r}.json"))) for r in range(2)]
+    ranks = [json.load(open(os.path.join(tmp, f"rank{r}_of2x1.json"))) for r in range(2)]
     for mode in ("stored", "fused"):
         want = dict(_ZERO, fwd_kernel=DIST_STEPS, residual_fwd=DIST_STEPS,
                     **{"stored_bwd" if mode == "stored" else "bwd_kernel": DIST_STEPS})
-        ref = torch.load(os.path.join(tmp, f"params_{mode}_rank0_of1.pt"), weights_only=True)
+        ref = torch.load(os.path.join(tmp, f"params_{mode}_rank0_of1x1.pt"), weights_only=True)
         worst = {}
         for r, rk in enumerate(ranks):
             if rk["backend"] != "gloo" or rk["info"]["process_count"] != 2 \
                     or rk["rows"] != [4 * r, 4 * r + 4] or rk[mode]["counts"] != want:
                 raise AssertionError(f"rank {r} [{mode}]: {rk['backend']} {rk['info']} rows "
                                      f"{rk['rows']} counts {rk[mode]['counts']}, expected {want}")
-            got = torch.load(os.path.join(tmp, f"params_{mode}_rank{r}_of2.pt"),
+            got = torch.load(os.path.join(tmp, f"params_{mode}_rank{r}_of2x1.pt"),
                              weights_only=True)
             for name, w in ref.items():
                 excess = ((got[name] - w).abs() - DIST_RTOL * w.abs()).max()
@@ -3082,8 +3182,267 @@ def phase_distributed(device, info: dict, roots: dict, served: dict) -> dict:
                                  f"agreement {exact}, {agree}")
         launches["chain" if mode == "chain" else "fwd"] += counts[key]
     os.environ.pop("GDKVM_GDR_FWD")
+
+    _heads_train(tmp, one, one_eval, launches, smi)
+    _heads_run(tmp, roots, device, launches)
+    _heads_serve(device, served, launches, smi)
+    shard = _shard_kernels(device, smi)
     print(f"phase_distributed: {time.perf_counter() - t_phase:.1f} s")
-    return launches
+    return dict(launches, shard=shard)
+
+
+def _heads_train(tmp: str, one: dict, one_eval: dict, launches: dict, smi: str) -> None:
+    """(v): the two ranks of (ii) as data 1 × model 2, against one
+    process's (ii)."""
+    import torch
+    from gdkvm_tpu_torch.parallel.mesh import gather_state_dicts, head_dim
+    ranks = [json.load(open(os.path.join(tmp, f"rank{r}_of1x2.json"))) for r in range(2)]
+    for mode in ("stored", "fused"):
+        want = dict(_ZERO, fwd_kernel=DIST_STEPS, residual_fwd=DIST_STEPS,
+                    **{"stored_bwd" if mode == "stored" else "bwd_kernel": DIST_STEPS})
+        ref = torch.load(os.path.join(tmp, f"params_{mode}_rank0_of1x1.pt"), weights_only=True)
+        shards = [torch.load(os.path.join(tmp, f"params_{mode}_rank{r}_of1x2.pt"),
+                             weights_only=True) for r in range(2)]
+        for r, rk in enumerate(ranks):
+            if rk["place"] != [0, r] or rk["rows"] != [0, 8] or rk[mode]["counts"] != want:
+                raise AssertionError(f"1x2 rank {r} [{mode}]: place {rk['place']} rows "
+                                     f"{rk['rows']} counts {rk[mode]['counts']}, expected {want}")
+            for s_, (m1, m2) in enumerate(zip(one[mode]["metrics"], rk[mode]["metrics"])):
+                d_loss = abs(m2["loss"] - m1["loss"]) / abs(m1["loss"])
+                d_norm = abs(m2["grad_norm"] - m1["grad_norm"]) / abs(m1["grad_norm"])
+                if d_loss > DIST_LOSS_REL or d_norm > DIST_NORM_REL \
+                        or m2["batch_checksum"] != m1["batch_checksum"]:
+                    raise AssertionError(f"1x2 rank {r} [{mode}] step {s_ + 1}: {m2} "
+                                         f"against {m1}")
+        unequal = [n for n, t in shards[0].items()
+                   if head_dim(n) is None and not torch.equal(t, shards[1][n])]
+        if unequal:
+            raise AssertionError(f"1x2 [{mode}]: replicated parameters differ across the "
+                                 f"ranks: {unequal[:5]}")
+        got = gather_state_dicts(shards)
+        worst = {n: float(((got[n] - w).abs() - DIST_RTOL * w.abs()).max())
+                 for n, w in ref.items()}
+        name = max(worst, key=worst.get)
+        print(f"distributed (v) [{mode}]: data 1 x model 2 on cuda:0 over gloo, 2 heads a "
+              f"rank, batch 8 each; counts per rank {ranks[0][mode]['counts']}; losses "
+              + " ".join(f"{m['loss']:.7f}" for m in ranks[0][mode]["metrics"])
+              + ", grad norms " + " ".join(f"{m['grad_norm']:.7f}"
+                                           for m in ranks[0][mode]["metrics"])
+              + " (one process " + " ".join(f"{m['loss']:.7f}/{m['grad_norm']:.7f}"
+                                            for m in one[mode]["metrics"])
+              + f"); replicated parameters bitwise equal on both ranks; worst max(|Δ| - "
+              f"{DIST_RTOL:g}|p|) over the gathered parameters {worst[name]:.3e} ({name}; "
+              f"bar {DIST_ATOL:g})")
+        if worst[name] > DIST_ATOL:
+            raise AssertionError(f"[{mode}] 1x2 differs from one process at {name}")
+        launches["residual"] += 2 * DIST_STEPS
+        launches["bwd"] += 2 * DIST_STEPS if mode == "fused" else 0
+    share = [rk["model_sum_ms"] / rk["stored"]["step_ms"] for rk in ranks]
+    print(f"distributed (v) times on {smi}: step ms per rank, two ranks at once on the "
+          "card: " + ", ".join(f"{m} " + "/".join(f"{rk[m]['step_ms']:.2f}" for rk in ranks)
+                               for m in ("stored", "fused"))
+          + "; one process on batch 8: " + ", ".join(f"{m} {one[m]['step_ms']:.2f}"
+                                                     for m in ("stored", "fused"))
+          + f"; the model group's collectives of a step ({ranks[0]['model_sum_mb']:.2f} MiB "
+          "of all-reduces) " + "/".join(f"{rk['model_sum_ms']:.2f}" for rk in ranks)
+          + " ms, " + "/".join(f"{x:.3f}" for x in share) + " of a stored step")
+    n_val = RUN_CLIPS["packed"][1]
+    want_eval = dict(_ZERO, fwd_kernel=n_val)
+    for r, rk in enumerate(ranks):
+        scores = rk["eval"]["scores"]
+        diff = max(abs(scores[k] - v) for k, v in one_eval["scores"].items())
+        if rk["eval"]["counts"] != want_eval or set(scores) != set(one_eval["scores"]) \
+                or scores["frames"] != one_eval["scores"]["frames"] or diff > DIST_DICE:
+            raise AssertionError(f"1x2 rank {r} evaluate {rk['eval']} against one process "
+                                 f"{one_eval}")
+    print(f"distributed (v) evaluate, 1x2: counts per rank {ranks[0]['eval']['counts']}; "
+          f"worst |Δ| against one process {diff:.2e}")
+    launches["fwd"] += 2 * n_val
+
+
+def _heads_run(tmp: str, roots: dict, device, launches: dict) -> None:
+    """(vi): ``train(cfg)`` on four ranks as data 2 × model 2, then one
+    process from its checkpoint."""
+    import shutil
+    import numpy as np
+    import torch
+    from gdkvm_tpu_torch.train.loop import train
+    run_dir = os.path.join(tmp, "run2x2")
+    os.makedirs(run_dir)
+    t0 = time.perf_counter()
+    _run_ranks([sys.executable, os.path.abspath(__file__), "--rank-train", run_dir,
+                roots["packed"]], 4, "2x2 train on cuda:0")
+    ranks_s = time.perf_counter() - t0
+    ranks = [json.load(open(os.path.join(run_dir, f"rank{r}.json"))) for r in range(4)]
+    n_val = RUN_CLIPS["packed"][1]
+    want = dict(_ZERO, fwd_kernel=HEAD_RUN_STEPS + n_val // 2, residual_fwd=HEAD_RUN_STEPS,
+                stored_bwd=HEAD_RUN_STEPS)
+    untimed = lambda m: {k: v for k, v in m.items()
+                         if k not in ("steps_per_sec", "sec_per_step", "frames_per_sec")}
+    if any(rk["counts"] != want or untimed(rk["final"]) != untimed(ranks[0]["final"])
+           for rk in ranks):
+        raise AssertionError(f"2x2 train: counts {[rk['counts'] for rk in ranks]}, expected "
+                             f"{want}; finals {[rk['final'] for rk in ranks]}")
+    launches["fwd"] += 4 * (n_val // 2)
+    launches["residual"] += 4 * HEAD_RUN_STEPS
+    resumed = os.path.join(tmp, "run1_from2x2")
+    os.makedirs(os.path.join(resumed, "checkpoints"))
+    shutil.copy(os.path.join(run_dir, "checkpoints", f"step_{HEAD_RESUME_AT:08d}.pt"),
+                os.path.join(resumed, "checkpoints"))
+    _reset_counts()
+    final = train(_head_run_cfg(roots["packed"], resumed, **{"runtime.resume": True}),
+                  device=device)
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    steps = HEAD_RUN_STEPS - HEAD_RESUME_AT
+    want1 = dict(_ZERO, fwd_kernel=steps + n_val, residual_fwd=steps, stored_bwd=steps)
+    rows2 = {r["step"]: r for r in _jsonl(run_dir) if "loss" in r}
+    rows1 = [r for r in _jsonl(resumed) if "loss" in r]
+    ck2, ck1 = (torch.load(os.path.join(d, "checkpoints", f"step_{HEAD_RUN_STEPS:08d}.pt"),
+                           weights_only=True) for d in (run_dir, resumed))
+    worst = {n: float(((ck1["model"][n] - w).abs() - DIST_RTOL * w.abs()).max())
+             for n, w in ck2["model"].items()}
+    name = max(worst, key=worst.get)
+    d_loss = max(abs(r["loss"] - rows2[r["step"]]["loss"]) / abs(rows2[r["step"]]["loss"])
+                 for r in rows1)
+    print(f"distributed (vi) train at data 2 x model 2 on cuda:0 over gloo, 4 ranks: "
+          f"{HEAD_RUN_STEPS} steps, counts per rank {ranks[0]['counts']}, loss "
+          f"{ranks[0]['final']['loss']:.6f}, eval Dice fg "
+          f"{ranks[0]['final']['eval/dice_fg_mean']:.6f}, ranks' processes {ranks_s:.1f} s; "
+          f"one process from its step-{HEAD_RESUME_AT} checkpoint: counts {counts}, steps "
+          f"{[r['step'] for r in rows1]}, worst loss rel {d_loss:.2e}, worst max(|Δ| - "
+          f"{DIST_RTOL:g}|p|) over the step-{HEAD_RUN_STEPS} parameters {worst[name]:.3e} "
+          f"({name}), eval Dice fg {final['eval/dice_fg_mean']:.6f}")
+    if counts != want1 or [r["step"] for r in rows1] != list(range(HEAD_RESUME_AT + 1,
+                                                                    HEAD_RUN_STEPS + 1)) \
+            or any(r["batch_checksum"] != rows2[r["step"]]["batch_checksum"] for r in rows1) \
+            or d_loss > DIST_LOSS_REL or worst[name] > DIST_ATOL \
+            or not torch.equal(ck1["gen"], ck2["gen"]) \
+            or abs(final["eval/dice_fg_mean"] - ranks[0]["final"]["eval/dice_fg_mean"]) \
+            > DIST_DICE or not np.isfinite(final["loss"]):
+        raise AssertionError(f"one process from the 2x2 checkpoint: counts {counts} "
+                             f"(expected {want1}), rows {rows1}, worst {worst[name]} at {name}")
+    launches["fwd"] += n_val
+    launches["residual"] += steps
+
+
+def _heads_serve(device, served: dict, launches: dict, smi: str) -> None:
+    """(vii): phase_serve's sessions through 1x2 and 2x2 meshes of the card
+    in one process, against the one-device engine's masks; the one-device
+    engine timed beside them in the same call."""
+    from gdkvm_tpu_torch.parallel.mesh import make_mesh
+    from gdkvm_tpu_torch.serve import ServeClient
+    videos = _serve_videos()
+    frames = sum(len(v) for v in videos)
+    for dtype, model, refs, bar in (
+            ("float32", served["model_fp32"], served["masks_fp32"], SERVE_AGREE),
+            ("bfloat16", served["model"], served["masks"], served["bf16_bar"])):
+        for mode in ("monolith", "chain"):
+            os.environ["GDKVM_GDR_FWD"] = mode
+            key = "chain_kernel" if mode == "chain" else "fwd_kernel"
+            for d, m in ((1, 1), (1, 2), (2, 2)):
+                mesh = None if m == 1 else make_mesh(d, m, devices=[device] * (d * m))
+                with _served(model, mesh=mesh) as (engine, addr):
+                    _reset_counts()
+                    ticks0 = engine.ticks
+                    t0 = time.perf_counter()
+                    with ThreadPoolExecutor(max_workers=len(videos)) as pool:
+                        masks = list(pool.map(lambda v: _one_session(addr, v), videos))
+                    wall = time.perf_counter() - t0
+                    ticks = engine.ticks - ticks0
+                    counts = _read_counts()
+                    health = ServeClient(*addr).health()
+                launches["chain" if mode == "chain" else "fwd"] += counts[key]
+                if mesh is None:           # the one-device engine, timed in the same call
+                    print(f"distributed (vii) one-device engine [{dtype}, {mode}] on {smi}: "
+                          f"{ticks} ticks, {counts[key] / max(ticks, 1):.1f} launches a tick, "
+                          f"{frames / wall:.1f} frames/s over {wall:.2f} s")
+                    if counts != dict(_ZERO, **{key: ticks}):
+                        raise AssertionError(f"one-device engine [{dtype}, {mode}]: {counts}")
+                    continue
+                agree = [float((a == b).mean()) for a, b in zip(masks, refs[mode])]
+                print(f"distributed (vii) mesh serving {d}x{m} [{dtype}, {mode}] on {smi}: "
+                      f"mesh {health['mesh']}, {ticks} ticks, counts {counts} "
+                      f"({counts[key] / max(ticks, 1):.1f} launches a tick), "
+                      f"{frames / wall:.1f} frames/s over {wall:.2f} s; masks per session "
+                      "against the one-device engine: "
+                      + " ".join(f"{x:.6f}" for x in agree) + f" (bar {bar:.6f})")
+                if health["mesh"] != {"data": d, "model": m} or ticks < 1 \
+                        or counts != dict(_ZERO, **{key: d * m * ticks}) or min(agree) < bar:
+                    raise AssertionError(f"mesh serving {d}x{m} [{dtype}, {mode}]: counts "
+                                         f"{counts} for {ticks} ticks, agreement {agree}")
+    os.environ.pop("GDKVM_GDR_FWD")
+
+
+# (viii): ts8's 4 heads over a model axis of 2.
+SHARD_SERVE, SHARD_STREAM = (8, 2, 16, 49, 64, 64), (8, 2, 32, 49, 64, 64)
+SHARD_TRAIN = (8, 2, 10, 256, 64, 64)
+
+
+def _shard_kernels(device, smi: str) -> dict:
+    """(viii): each kernel at a head shard's shape against its plain
+    version at the existing bars, then timed in turns beside its bound →
+    {kernel: {ms, plain_ms, bound_ms, bound_by, err}}."""
+    import torch
+    from gdkvm_tpu_torch.core import gdr
+    from gdkvm_tpu_torch.ops import gdr_counts, gdr_cuda
+    gen = torch.Generator(device=device).manual_seed(8)
+    out = {}
+    for name, shape in (("serve", SHARD_SERVE), ("stream", SHARD_STREAM)):
+        args = _gdr_inputs(gen, *shape, torch.bfloat16, device)
+        o_k, s_k = gdr_cuda.gdr_fwd_cuda(*args)
+        o_p, s_p = gdr.gdr_chunked(*args)
+        torch.testing.assert_close(o_k, o_p, rtol=RTOL, atol=ATOL)
+        torch.testing.assert_close(s_k, s_p, rtol=RTOL, atol=ATOL)
+        k_ms, p_ms, spread = _in_turns(lambda: gdr.gdr_chunked(*args),
+                                       lambda: gdr_cuda.gdr_fwd_cuda(*args))
+        print(f"distributed (viii) fwd at {shape} bf16 on {smi}: kernel {k_ms:.4f} ms, "
+              f"plain {p_ms:.4f} ms ({spread}); max|Δo| {_abs(o_k, o_p):.3e}")
+        out[f"fwd_{name}"] = dict(_bound(f"fwd at H=2, {name}", k_ms,
+                                         gdr_counts.fwd_ops(*shape, exact=True),
+                                         _nbytes(*args, o_k, s_k)),
+                                  plain_ms=p_ms, err=max(_abs(o_k, o_p), _abs(s_k, s_p)))
+    q, k, v, beta, alpha, s0 = _gdr_inputs(gen, *SHARD_TRAIN, torch.bfloat16, device)
+    got = gdr_cuda.gdr_fwd_cuda_residuals(q, k, v, beta, alpha, s0)
+    want = gdr.gdr_chunked_residuals(q, k, v, beta, alpha, s0)
+    err_f = _check_rel(f"distributed (viii) fwd+residuals vs plain {SHARD_TRAIN}",
+                       ("o", "s_T", "states", "U", "W"), got, want, FWD_REL)
+    do = torch.randn(want[0].shape, device=device, generator=gen)
+    ds_t = torch.randn(s0.shape, device=device, generator=gen)
+    bargs = (q, k, v, beta, beta, alpha, want[2], do, ds_t)
+    got_b = gdr_cuda.gdr_bwd_cuda(*bargs)
+    err_b = _check_rel(f"distributed (viii) fused bwd vs plain {SHARD_TRAIN}",
+                       ("dq", "dk", "dv", "dbeta", "deta", "dalpha", "ds0"), got_b,
+                       gdr.gdr_bwd_ref(*bargs), BWD_REL)
+    f_ms, f_plain, f_spread = _in_turns(
+        lambda: gdr.gdr_chunked_residuals(q, k, v, beta, alpha, s0),
+        lambda: gdr_cuda.gdr_fwd_cuda_residuals(q, k, v, beta, alpha, s0), iters=10)
+    b_ms, b_plain, b_spread = _in_turns(lambda: gdr.gdr_bwd_ref(*bargs),
+                                        lambda: gdr_cuda.gdr_bwd_cuda(*bargs), iters=10)
+    print(f"distributed (viii) at {SHARD_TRAIN} bf16 q/k/v on {smi}: fwd+residuals kernel "
+          f"{f_ms:.4f} ms, plain {f_plain:.4f} ms ({f_spread}); bwd kernel {b_ms:.4f} ms, "
+          f"plain {b_plain:.4f} ms ({b_spread})")
+    out["fwd_residuals"] = dict(_bound("fwd+residuals at H=2", f_ms,
+                                       gdr_counts.fwd_ops(*SHARD_TRAIN, exact=True),
+                                       _nbytes(q, k, v, beta, alpha, s0, *got)),
+                                plain_ms=f_plain, err=err_f)
+    out["bwd"] = dict(_bound("bwd at H=2", b_ms, gdr_counts.bwd_ops(*SHARD_TRAIN, exact=True),
+                             _nbytes(*bargs, *got_b)), plain_ms=b_plain, err=err_b)
+    q, k, v, beta, alpha, s0 = _gdr_inputs(gen, *SHARD_SERVE, torch.bfloat16, device)
+    u, w = gdr_cuda._wy(k, v, beta, None)
+    got_c = gdr_cuda.gdr_chain_cuda(q, k, u, w, alpha, s0, save_states=False)
+    err_c = _check_rel(f"distributed (viii) chain vs plain {SHARD_SERVE}", ("o", "s_T"),
+                       got_c[:2], gdr.gdr_chain(q, k, u, w, alpha, s0)[:2], CHAIN_REL)
+    c_ms, c_plain, c_spread = _in_turns(
+        lambda: gdr.gdr_chain(q, k, u, w, alpha, s0),
+        lambda: gdr_cuda.gdr_chain_cuda(q, k, u, w, alpha, s0, save_states=False))
+    print(f"distributed (viii) chain at {SHARD_SERVE} on {smi}: kernel {c_ms:.4f} ms, plain "
+          f"{c_plain:.4f} ms ({c_spread})")
+    out["chain"] = dict(_bound("chain at H=2, serve", c_ms,
+                               gdr_counts.chain_ops(*SHARD_SERVE, exact=True),
+                               _nbytes(q, k, u, w, alpha, s0, *got_c[:2])),
+                        plain_ms=c_plain, err=err_c)
+    return out
 
 
 def _profiled_ms(fn, iters: int = 20, match: str | None = None) -> float | None:
@@ -3169,27 +3528,29 @@ def main() -> int:
          + train_launches["fwd"] + run["launches"]["fwd"] + gdn2["fwd"]
          + stream_eval_launches + cli_launches["fwd"] + quant_model["fwd"]
          + quant_cli["fwd"] + dist["fwd"] + bench["fwd"],
-         "max_abs_err": err_fwd,
+         "max_abs_err": max(err_fwd, dist["shard"]["fwd_serve"]["err"],
+                            dist["shard"]["fwd_stream"]["err"]),
          **fwd_times, "library_ms": None},
         {"name": "gdr_fwd_residuals", "route": "cuda", "source": src + "gdr_fwd.cu",
          "replaces": "gdkvm_tpu/ops/gdr_pallas.py:513",
          "launches": train_launches["residual"] + run["launches"]["residual"]
          + gdn2["residual"] + cli_launches["residual"] + dist["residual"]
          + bench["residual"],
-         "max_abs_err": err_res,
+         "max_abs_err": max(err_res, dist["shard"]["fwd_residuals"]["err"]),
          **times["fwd"], "library_ms": None},
         {"name": "gdr_bwd", "route": "cuda", "source": src + "gdr_bwd.cu",
          "replaces": "gdkvm_tpu/ops/gdr_pallas.py:724",
          "launches": train_launches["bwd"] + gdn2["bwd"] + cli_launches["bwd"]
          + dist["bwd"],
-         "max_abs_err": err_bwd,
+         "max_abs_err": max(err_bwd, dist["shard"]["bwd"]["err"]),
          **{k: v for k, v in times["bwd"].items() if k != "stored_ms"},
          "library_ms": None},
         {"name": "gdr_chain", "route": "cuda", "source": src + "gdr_chain.cuh",
          "replaces": "gdkvm_tpu/ops/gdr_pallas.py:585",
          "launches": serve["chain_launches"] + export["chain"]
          + chain_train_launches + cli_launches["chain"] + dist["chain"],
-         "max_abs_err": err_chain, **chain_times["serve"]["kernel"],
+         "max_abs_err": max(err_chain, dist["shard"]["chain"]["err"]),
+         **chain_times["serve"]["kernel"],
          "library_ms": None},
     ]}))
     print(f"card: {info['smi']}")
@@ -3204,4 +3565,6 @@ if __name__ == "__main__":
         sys.exit(_rank_cli(sys.argv[2:]))
     if sys.argv[1:2] == ["--rank-dist"]:
         sys.exit(_rank_dist(*sys.argv[2:]))
+    if sys.argv[1:2] == ["--rank-train"]:
+        sys.exit(_rank_train(*sys.argv[2:]))
     sys.exit(main())

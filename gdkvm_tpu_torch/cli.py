@@ -23,14 +23,13 @@ eval/regression.py.
 ``train`` and ``eval`` join the process group that ``torchrun`` (or the
 JAX package's ``GDKVM_*`` variables) describes, one process per card
 (parallel/distributed.py): ``torchrun --nproc_per_node=N -m gdkvm_tpu_torch
-train --config ...`` trains on N cards, each rank on ``cuda:{LOCAL_RANK}``
-(``--device cpu``: N CPU processes over gloo).  Only rank 0 prints and
-writes.  ``serve --mesh auto|DxM`` splits the slot pool over D devices in
-one process: every visible card for ``--device cuda``, D replicas on the
-one device otherwise.
-
-Not ported: head parallelism (``parallel.model_axis`` > 1, ``--mesh Dx2``),
-which raises ``NotImplementedError`` citing item 7 of ROADMAP Queue 1.
+train --config ... parallel.model_axis=M`` trains on N cards laid out as a
+N/M × M mesh, the LKVA heads split over each row of M, each rank on
+``cuda:{LOCAL_RANK}`` (``--device cpu``: N CPU processes over gloo).  Only
+rank 0 prints and writes.  ``serve --mesh auto|DxM`` splits the slot pool
+over D rows of M devices in one process, the heads over each row: every
+visible card for ``--device cuda``, D × M places on the one device
+otherwise.
 """
 
 from __future__ import annotations
@@ -40,16 +39,6 @@ import contextlib
 import json
 import os
 import sys
-
-_NOT_PORTED = {
-    7: "item 7: head parallelism",
-}
-
-
-def _not_ported(what: str, *items: int) -> NotImplementedError:
-    where = "; ".join(_NOT_PORTED[i] for i in items)
-    return NotImplementedError(f"{what} is not ported (ROADMAP Queue 1, {where})")
-
 
 def _split_args(argv):
     """Separate flag args from key=value overrides."""
@@ -95,22 +84,25 @@ def _print_main(line: str) -> None:
         print(line, flush=True)
 
 
-def _load_model(cfg, checkpoint, device, action: str, require: bool = False):
+def _load_model(cfg, checkpoint, device, action: str, require: bool = False,
+                mesh=None):
     """The model to run, on ``device`` in eval mode, and its step: restored
     from ``checkpoint`` (default ``<run_dir>/checkpoints``) with the
     parameters to score in place (the EMA shadow when tracked and
     ``eval_stage.use_ema``), else a seeded init with a warning on stderr
-    (an error under ``require``)."""
+    (an error under ``require``).  ``mesh``: a process group's mesh, whose
+    model position's head shard this process holds."""
     import torch
     from gdkvm_tpu_torch.io.checkpoint import CheckpointManager
     from gdkvm_tpu_torch.models.gdkvm import GDKVM, init_params
     from gdkvm_tpu_torch.train.loop import eval_params, state_for
 
-    model = GDKVM(cfg.model, device=device)
+    heads = dict(heads=mesh.heads, model_group=mesh.model_group) if mesh else {}
+    model = GDKVM(cfg.model, device=device, **heads)
     ckpt_dir = checkpoint or os.path.join(cfg.runtime.run_dir, "checkpoints")
     step = 0
     if os.path.isdir(ckpt_dir) and os.listdir(ckpt_dir):
-        state = CheckpointManager(ckpt_dir).restore(state_for(cfg, model))
+        state = CheckpointManager(ckpt_dir).restore(state_for(cfg, model, mesh))
         with torch.no_grad():
             for p, v in zip(model.parameters(), eval_params(state, cfg)):
                 if p is not v:
@@ -153,6 +145,7 @@ def cmd_eval(argv) -> int:
     import torch
     from gdkvm_tpu_torch.config.schema import load_config
     from gdkvm_tpu_torch.eval.evaluator import evaluate
+    from gdkvm_tpu_torch.parallel.mesh import run_mesh
 
     flags, overrides = _split_args(argv)
     p = argparse.ArgumentParser(prog="gdkvm eval")
@@ -163,10 +156,11 @@ def cmd_eval(argv) -> int:
     args = p.parse_args(flags)
     cfg = load_config(args.config, overrides)
     with _process_group(_device(args.device)) as device:
+        mesh = run_mesh(cfg, device)
         model, step = _load_model(cfg, args.checkpoint, device, "scoring",
-                                  require=True)
+                                  require=True, mesh=mesh)
         with torch.inference_mode():
-            metrics = evaluate(cfg, model, device, step=step)
+            metrics = evaluate(cfg, model, device, step=step, mesh=mesh)
         _print_main(json.dumps(metrics))
     return 0
 
@@ -712,14 +706,14 @@ def cmd_serve_check(argv) -> int:
 
 def _serving_mesh(device, data: int, model: int):
     """The mesh of ``serve --mesh``: over every visible card for an
-    index-less CUDA device, else ``data`` replicas on ``device`` (one for
-    data = -1)."""
+    index-less CUDA device, else ``data × model`` places on ``device``
+    (data = -1: one row)."""
     import torch
     from gdkvm_tpu_torch.parallel.mesh import make_mesh
     if device.type == "cuda" and device.index is None:
         devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
     else:
-        devices = [device] * max(data, 1)
+        devices = [device] * (max(data, 1) * model)
     return make_mesh(data, model, devices)
 
 
@@ -760,9 +754,9 @@ def cmd_serve(argv) -> int:
                         "conv path (checkpoint path only)")
     p.add_argument("--mesh", default=None,
                    help="split the slot pool over devices: 'auto' (config "
-                        "parallel.{data_axis,model_axis}) or 'DxM', e.g. 2x1; "
-                        "streams must divide by D (checkpoint path only; "
-                        "M > 1 is not ported)")
+                        "parallel.{data_axis,model_axis}) or 'DxM', e.g. 2x2: "
+                        "D slot groups, the heads of each over M devices; "
+                        "streams must divide by D (checkpoint path only)")
     _add_device(p)
     args = p.parse_args(flags)
     cfg = load_config(args.config, overrides)
@@ -783,9 +777,6 @@ def cmd_serve(argv) -> int:
                       f"{args.mesh!r}", file=sys.stderr)
                 return 2
             mesh_shape = (d, m)
-        if mesh_shape[1] != 1:
-            raise _not_ported(f"--mesh {args.mesh} (model axis "
-                              f"{mesh_shape[1]}: the LKVA heads over devices)", 7)
     streams = args.streams or max(cfg.eval_stage.streams, 1)
     chunk = args.chunk or cfg.eval_stage.stream_chunk
     device = _device(args.device)

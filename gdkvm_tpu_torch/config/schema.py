@@ -124,13 +124,15 @@ class EvalStageConfig:
 
 @dataclass
 class ParallelConfig:
-    """Device layout.  ``data_axis`` is the data-parallel width: in training
-    and eval the ranks of the process group (parallel/distributed.py, one
-    process per device), where a value other than -1 must equal the world
-    size and the global ``train.batch_size`` must split evenly over it
-    (:func:`data_parallel_size`); under ``serve --mesh auto`` the devices
-    the slot pool is split over.  ``model_axis`` > 1 (the LKVA heads
-    sharded over devices) is not ported and raises."""
+    """Device layout: a ``data_axis`` × ``model_axis`` mesh.  ``data_axis``
+    is the data-parallel width, ``model_axis`` the number of shards the
+    LKVA heads are split into (it must divide ``model.num_heads``).  In
+    training and eval the mesh spans the ranks of the process group
+    (parallel/distributed.py, one process per device): the world must
+    equal data × model, a ``data_axis`` of -1 is world / model, and the
+    global ``train.batch_size`` must split evenly over the data axis
+    (:func:`data_parallel_size`).  Under ``serve --mesh auto`` the mesh is
+    laid over the process's devices."""
     data_axis: int = -1                # -1 = all remaining devices
     model_axis: int = 1
     donate_state: bool = True          # unused here: no buffer donation in PyTorch
@@ -178,20 +180,31 @@ class Config:
 
 
 def data_parallel_size(cfg: Config, world: int) -> int:
-    """The data axis of a run over ``world`` ranks, checked: ``model_axis``
-    must be 1, ``data_axis`` -1 or ``world``, and the global batch must
-    split evenly over the ranks."""
+    """The data axis of a run over ``world`` ranks, checked as the JAX
+    package's ``make_mesh`` checks its devices: ``model_axis`` must divide
+    the world when ``data_axis`` is -1, ``data_axis × model_axis`` must
+    span it, and the global batch must split evenly over the data axis."""
     p = cfg.parallel
-    if p.model_axis != 1:
-        from gdkvm_tpu_torch.parallel.mesh import head_parallel_error
-        raise head_parallel_error(f"parallel.model_axis={p.model_axis}")
-    if p.data_axis not in (-1, world):
-        raise ValueError(f"parallel.data_axis={p.data_axis}: a run of {world} "
-                         f"process(es) has a data axis of {world} (or -1)")
-    if cfg.train.batch_size % world:
+    model = p.model_axis
+    if model < 1:
+        raise ValueError(f"parallel.model_axis={model} must be at least 1")
+    if p.data_axis == -1:
+        if world % model:
+            raise ValueError(f"parallel.model_axis={model}: {world} devices not "
+                             f"divisible by model={model}")
+        data = world // model
+    else:
+        data = p.data_axis
+        if data * model != world:
+            raise ValueError(
+                f"parallel.data_axis={data}: a run of {world} process(es) at "
+                f"model_axis={model} has a data axis of {world // model} (or -1)"
+                + (f"; mesh {data}x{model} exceeds {world} devices"
+                   if data * model > world else ""))
+    if cfg.train.batch_size % data:
         raise ValueError(f"train.batch_size={cfg.train.batch_size} (global) does "
-                         f"not split over {world} ranks")
-    return world
+                         f"not split over {data} data positions")
+    return data
 
 
 def _from_dict(cls, d: Dict[str, Any]):

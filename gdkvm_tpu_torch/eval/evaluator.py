@@ -8,11 +8,13 @@ the training loop, gets its graph back afterwards), Dice partial sums are
 added on the device and fetched once at the end of the pass.
 
 In a process group (parallel/distributed.py) the clips are split over the
-ranks as the JAX package splits them over its ``data`` axis: each eval
-batch holds a multiple of the world size, each rank runs its rows, the
-Dice sums are summed over the ranks and the HD95 values and the overlays'
-frames are gathered (``all_gather_object``); rank 0 writes the overlays.
-Every rank returns the same scores.
+data positions of the mesh as the JAX package splits them over its
+``data`` axis: each eval batch holds a multiple of the data axis, each
+rank runs its data position's rows (with its model group, through its head
+shard, where the model axis is > 1), the Dice sums are summed over its
+data group and the HD95 values and the overlays' frames are gathered over
+it (``all_gather_object``), so each data position counts once; rank 0
+writes the overlays.  Every rank returns the same scores.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ from __future__ import annotations
 import logging
 import os
 import warnings
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -32,17 +34,21 @@ from gdkvm_tpu_torch.eval import metrics as M
 from gdkvm_tpu_torch.eval.vis import save_vis
 from gdkvm_tpu_torch.models.gdkvm import GDKVM
 from gdkvm_tpu_torch.parallel import distributed
+from gdkvm_tpu_torch.parallel.mesh import Mesh, process_mesh
 from gdkvm_tpu_torch.utils.optional import has_pil
 
 
 def evaluate(cfg: Config, model: GDKVM, device: torch.device | str,
-             step: int = 0) -> Dict[str, float]:
+             step: int = 0, mesh: Optional[Mesh] = None) -> Dict[str, float]:
     """Run the val split through ``model`` (whose parameters are the ones to
     score) on ``device``; returns per-class Dice, their foreground mean and
     the frame count, plus HD95 under ``eval_stage.hd95``.  Writes up to
     ``eval_stage.num_vis`` overlays into ``run_dir/vis`` when PIL is there.
-    A missing val split is a warning and an empty result, not an error."""
+    A missing val split is a warning and an empty result, not an error.
+    ``mesh``: the process group's mesh (default: data-only over every
+    rank); ``model`` is its model position's head shard."""
     device = torch.device(device)
+    mesh = process_mesh(device) if mesh is None else mesh
     k = cfg.model.num_classes
     try:
         dataset = make_dataset(cfg.data, cfg.data.val_split, k)
@@ -57,8 +63,8 @@ def evaluate(cfg: Config, model: GDKVM, device: torch.device | str,
         return {}
 
     # The eval batch tiles the data axis, and a ragged last batch that does
-    # not split over the ranks is dropped, as the JAX package drops it.
-    world, rank = distributed.world_size(), distributed.rank()
+    # not split over it is dropped, as the JAX package drops it.
+    world, rank, group = mesh.data, distributed.rank(), mesh.data_group
     bs = max(cfg.eval_stage.batch_size, world) // world * world
     drop_tail = (len(dataset) % bs) % world != 0
     hd_on = cfg.eval_stage.hd95
@@ -67,7 +73,7 @@ def evaluate(cfg: Config, model: GDKVM, device: torch.device | str,
 
     it = batch_iterator(dataset, bs, shuffle=False, augment=False,
                         drop_last=drop_tail, loop=False,
-                        num_workers=cfg.data.num_workers, shard=(rank, world))
+                        num_workers=cfg.data.num_workers, shard=(mesh.index, world))
     acc = None
     vis_jobs: List[tuple] = []     # mid frames, their masks and preds, on the device
     hd_jobs: List[tuple] = []      # (preds, masks, valid) on the host
@@ -88,14 +94,15 @@ def evaluate(cfg: Config, model: GDKVM, device: torch.device | str,
                                      (pred.to(torch.uint8), batch.masks, batch.valid)))
     if acc is None:
         return {}
-    acc = dict(zip(acc, distributed.all_reduce_sum(list(acc.values()))))
+    if group is not None:
+        acc = dict(zip(acc, distributed.all_reduce_sum(list(acc.values()), group)))
     out = M.dice_finalize(acc)
 
     # Overlays of the first clips of the global order, written by rank 0.
     vis_jobs = [tuple(x.cpu().numpy() for x in job) for job in vis_jobs]
-    if world > 1:
+    if group is not None:
         shards = [None] * world
-        torch.distributed.all_gather_object(shards, vis_jobs)
+        torch.distributed.all_gather_object(shards, vis_jobs, group=group)
         vis_jobs = [tuple(np.concatenate(parts) for parts in zip(*jobs))
                     for jobs in zip(*shards)]
     vis_saved = 0
@@ -108,9 +115,9 @@ def evaluate(cfg: Config, model: GDKVM, device: torch.device | str,
 
     if hd_on and hd_jobs:
         # HD95 on the host over all valid frames, every rank's.
-        if world > 1:
+        if group is not None:
             shards = [None] * world
-            torch.distributed.all_gather_object(shards, hd_jobs)
+            torch.distributed.all_gather_object(shards, hd_jobs, group=group)
             hd_jobs = [job for jobs in shards for job in jobs]
         per_class: Dict[str, list] = {}
         n_inf = 0

@@ -15,10 +15,14 @@ that ``os.replace`` then moves into place, so a killed run leaves no
 half-written checkpoint.  Files load with ``torch.load(weights_only=True)``:
 they hold tensors, numbers, lists and dicts only.
 
-In a process group every rank holds the same state, so rank 0 alone writes;
-it waits for the file, and every rank then meets the others at a barrier, so
-no rank runs ahead of a checkpoint that is not yet on disk.  Every rank
-restores.
+A checkpoint is layout-free: it holds whole tensors whatever mesh wrote it.
+In a process group every data position holds the same state, so rank 0
+alone writes; a head shard's parameters, AdamW moments, accumulation buffer
+and EMA are first gathered whole over its model group (data position 0's
+ranks).  Rank 0 waits for the file, and every rank then meets the others at
+a barrier, so no rank runs ahead of a checkpoint that is not yet on disk.
+Every rank restores, each slicing out its model position's shard, so a run
+at any ``data × model`` mesh resumes one written at any other.
 """
 
 from __future__ import annotations
@@ -26,28 +30,47 @@ from __future__ import annotations
 import os
 import re
 import threading
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
 from gdkvm_tpu_torch.parallel import distributed
+from gdkvm_tpu_torch.parallel.mesh import gather_shard, head_dim
 
 _NAME = re.compile(r"^step_(\d+)\.pt$")
 
 
-def state_tree(state) -> Dict[str, Any]:
-    """The checkpoint tree of a ``TrainState`` (train/loop.py), its tensors
-    detached and copied to the CPU."""
-    cpu = lambda t: (t.detach().to("cpu", copy=True)
-                     if isinstance(t, torch.Tensor) else t)
+def _heads(state) -> int:
+    return 1 if state.mesh is None else state.mesh.model
+
+
+def _tree(state, place: Callable[[Any, Optional[int]], Any]) -> Dict[str, Any]:
+    """The checkpoint tree of a ``TrainState`` (train/loop.py), each tensor
+    of a parameter's shape passed through ``place(t, dim)``, ``dim`` the
+    dim its head shard splits (None where the tensor is whole)."""
+    m_axis = _heads(state)
+    dim = lambda name: head_dim(name) if m_axis > 1 else None
+    dims = [dim(n) for n, _ in state.model.named_parameters()]
+    per_param = lambda v: [place(t, d) for t, d in zip(v, dims)]
     return {
         "step": int(state.step),
-        "model": {k: cpu(v) for k, v in state.model.state_dict().items()},
-        "opt": {k: ([cpu(t) for t in v] if isinstance(v, list) else v)
+        "model": {k: place(v, dim(k)) for k, v in state.model.state_dict().items()},
+        "opt": {k: (per_param(v) if isinstance(v, list) and k != "adam_step" else v)
                 for k, v in state.opt.state_dict().items()},
-        "ema": None if state.ema is None else [cpu(e) for e in state.ema],
+        "ema": None if state.ema is None else per_param(state.ema),
         "gen": state.gen.get_state().clone(),
     }
+
+
+def state_tree(state) -> Dict[str, Any]:
+    """The checkpoint tree of a ``TrainState``, its tensors detached, whole
+    and copied to the CPU: a head shard's are gathered over its model group
+    (a collective call of the group)."""
+    def place(t, d):
+        if d is not None:
+            t = gather_shard(t.detach(), d, state.mesh)
+        return t.detach().to("cpu", copy=True)
+    return _tree(state, place)
 
 
 def _describe(tree: Any, prefix: str = "") -> Dict[str, Any]:
@@ -94,17 +117,19 @@ class CheckpointManager:
         and waits for the file, then every rank meets at a barrier."""
         self.wait()
         if distributed.world_size() > 1:
+            # Data position 0's ranks gather the head shards for rank 0.
+            tree = (state_tree(state) if _heads(state) > 1 and state.mesh.index == 0
+                    else None)
             if distributed.is_main_process():
-                self._save(step, state, force)
+                self._save(step, tree or state_tree(state), force)
                 self.wait()
             distributed.barrier(f"checkpoint step {step}")
             return
-        self._save(step, state, force)
+        self._save(step, state_tree(state), force)
 
-    def _save(self, step: int, state, force: bool) -> None:
+    def _save(self, step: int, tree: Dict[str, Any], force: bool) -> None:
         if os.path.exists(self._path(step)) and not force:
             return
-        tree = state_tree(state)
 
         def write() -> None:
             try:
@@ -137,14 +162,22 @@ class CheckpointManager:
     def restore(self, state_template, step: Optional[int] = None):
         """Load step ``step`` (default: the latest) into ``state_template``
         (a ``TrainState`` built from the run's config) in place, on the
-        template's device, and return it.  A tree that does not match the
+        template's device, and return it; a head shard's template takes its
+        slice of each whole tensor.  A tree that does not match the
         template's (other widths, EMA on one side only) raises ValueError."""
         self.wait()
         step = self.latest_step() if step is None else step
         if step is None or not os.path.exists(self._path(step)):
             raise FileNotFoundError(f"no checkpoint under {self._dir}")
         tree = torch.load(self._path(step), map_location="cpu", weights_only=True)
-        want, got = _describe(state_tree(state_template)), _describe(tree)
+        m_axis = _heads(state_template)
+
+        def whole(t, d):
+            shape = list(t.shape)
+            if d is not None:
+                shape[d] *= m_axis
+            return torch.empty(shape, dtype=t.dtype, device="meta")
+        want, got = _describe(_tree(state_template, whole)), _describe(tree)
         if want != got:
             # The model's own leaves first: the optimizer's and the EMA's
             # repeat them.
@@ -162,6 +195,21 @@ class CheckpointManager:
                 f"accumulation buffer are part of the checkpoint tree, so "
                 f"scoring/resume must use the same values (0 ↔ >0 changes "
                 f"the tree). Differences ({len(keys)}): {detail}")
+        if m_axis > 1:
+            # The template's layout (each tensor's split dim) picks the
+            # slice of each saved tensor.
+            m = state_template.mesh.model_index
+            dims = _tree(state_template, lambda t, d: d)
+
+            def own(t, d):
+                return t if d is None else t.chunk(m_axis, d)[m].contiguous()
+            tree = dict(tree,
+                        model={k: own(v, dims["model"][k]) for k, v in tree["model"].items()},
+                        opt={k: ([own(t, d) for t, d in zip(v, dims["opt"][k])]
+                                 if isinstance(v, list) and k != "adam_step" else v)
+                             for k, v in tree["opt"].items()},
+                        ema=None if tree["ema"] is None else
+                        [own(t, d) for t, d in zip(tree["ema"], dims["ema"])])
         state_template.model.load_state_dict(tree["model"], strict=True)
         state_template.opt.load_state_dict(tree["opt"])
         if tree["ema"] is not None:

@@ -13,7 +13,10 @@ the layout changes as follows:
 - ``bias`` and ``scale`` are copied.
 
 The conversion is strict: a leaf that maps to no parameter, a parameter no
-leaf fills, or a shape that differs raises, naming them.
+leaf fills, or a shape that differs raises, naming them.  ``heads=(M, m)``
+then cuts model position m's share out of it (parallel/mesh.py's
+``shard_state_dict``, the JAX package's ``param_shardings``), the state
+dict of ``GDKVM(cfg, heads=(M, m))``.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import torch
 
 from gdkvm_tpu_torch.config.schema import ModelConfig
 from gdkvm_tpu_torch.models.gdkvm import GDKVM
+from gdkvm_tpu_torch.parallel.mesh import shard_state_dict
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> Iterator[Tuple[str, np.ndarray]]:
@@ -55,9 +59,10 @@ def _convert_leaf(path: str, arr: np.ndarray, expected: Mapping[str, torch.Tenso
     return None
 
 
-def state_dict_from_flax(params: Dict[str, dict | np.ndarray],
-                         cfg: ModelConfig) -> Dict[str, torch.Tensor]:
-    """A ``GDKVM(cfg)`` state dict (fp32, CPU) from the flax param tree."""
+def state_dict_from_flax(params: Dict[str, dict | np.ndarray], cfg: ModelConfig,
+                         heads: Tuple[int, int] = (1, 0)) -> Dict[str, torch.Tensor]:
+    """A ``GDKVM(cfg, heads=heads)`` state dict (fp32, CPU) from the flax
+    param tree."""
     tree = params["params"] if set(params) == {"params"} else params
     expected = GDKVM(cfg, device="meta").state_dict()
     out: Dict[str, torch.Tensor] = {}
@@ -79,4 +84,4 @@ def state_dict_from_flax(params: Dict[str, dict | np.ndarray],
             "flax params do not match GDKVM(cfg): "
             f"leaves not consumed {unused}; parameters not filled {missing}; "
             f"shapes that differ {bad_shape}")
-    return out
+    return shard_state_dict(out, *heads)

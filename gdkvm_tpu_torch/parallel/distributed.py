@@ -1,11 +1,16 @@
-"""The process group of a data-parallel run (port of
+"""The process group of a distributed run (port of
 gdkvm_tpu/parallel/distributed.py on ``torch.distributed``).
 
 The reference trains with PyTorch DDP over NCCL, one process per GPU,
 launched by ``torchrun`` (SURVEY.md §2.4).  The port keeps that layout: one
-process per device, each holding a replica of the parameters and its share
-of the global batch; gradients and metrics are summed over the group by
-``all_reduce``.
+process per device.  Over a ``data`` × ``model`` mesh (parallel/mesh.py)
+each rank holds its model position's head shard of the parameters and its
+data position's share of the global batch; gradients and metrics are
+summed by ``all_reduce`` over the rank's data group (the ranks of its model
+position) and, where a head shard needs it, over its model group (the
+ranks of its data position).  :func:`mesh_groups` makes both kinds;
+:func:`model_copy` and :func:`model_sum` are the model group's two
+collectives inside the forward, with their gradients.
 
 :func:`maybe_initialize_distributed` reads either launcher's environment:
 
@@ -27,12 +32,15 @@ from __future__ import annotations
 
 import datetime
 import os
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
 _DEVICE: List[Optional[torch.device]] = [None]     # the rank's device, set at init
+# (data, model) → (data group of each model position, model group of each
+# data position), made once per process group (see mesh_groups).
+_GROUPS: Dict[Tuple[int, int], Tuple[list, list]] = {}
 
 
 def _env_spec() -> Optional[Tuple[str, int, int, int]]:
@@ -119,6 +127,7 @@ def shutdown() -> None:
     if dist.is_initialized():
         dist.destroy_process_group()
     _DEVICE[0] = None
+    _GROUPS.clear()
 
 
 def device() -> Optional[torch.device]:
@@ -174,10 +183,39 @@ def process_info() -> Dict[str, int]:
             "global_devices": local}
 
 
-def all_reduce_sum(tensors: List[torch.Tensor]) -> List[torch.Tensor]:
-    """``tensors`` summed over the ranks, as new tensors: one ``all_reduce``
-    of a flat buffer per dtype, in a group of one too.  Outside a process
-    group, ``tensors``."""
+def mesh_groups(data: int, model: int) -> Tuple[Any, Any]:
+    """This rank's (data group, model group) on a ``data`` × ``model`` mesh
+    of the whole group, ranks laid out row-major: rank r sits at data
+    position r // model and model position r % model.  Its data group holds
+    the ranks of its model position (r % model, + model, ...), its model
+    group those of its data position.  An axis of one has no group (None:
+    nothing to reduce over it); a group that spans the world is
+    ``dist.group.WORLD``; the others are made by ``dist.new_group``, every
+    one on every rank in the same order (a collective call), once per mesh
+    shape.  Outside a process group: (None, None)."""
+    if not dist.is_initialized():
+        return None, None
+    world = world_size()
+    if data * model != world:
+        raise ValueError(f"mesh {data}x{model} must span the process group's "
+                         f"{world} ranks")
+    if (data, model) not in _GROUPS:
+        whole = dist.group.WORLD
+        data_groups = ([None] * model if data == 1 else [whole] if model == 1 else
+                       [dist.new_group(list(range(m, world, model))) for m in range(model)])
+        model_groups = ([None] * data if model == 1 else [whole] if data == 1 else
+                        [dist.new_group(list(range(d * model, (d + 1) * model)))
+                         for d in range(data)])
+        _GROUPS[(data, model)] = (data_groups, model_groups)
+    data_groups, model_groups = _GROUPS[(data, model)]
+    r = rank()
+    return data_groups[r % model % len(data_groups)], model_groups[r // model % len(model_groups)]
+
+
+def all_reduce_sum(tensors: List[torch.Tensor], group: Any = None) -> List[torch.Tensor]:
+    """``tensors`` summed over ``group`` (default: every rank), as new
+    tensors: one ``all_reduce`` of a flat buffer per dtype, in a group of
+    one too.  Outside a process group, ``tensors``."""
     if not dist.is_initialized() or not tensors:
         return list(tensors)
     out: List[Optional[torch.Tensor]] = [None] * len(tensors)
@@ -186,14 +224,63 @@ def all_reduce_sum(tensors: List[torch.Tensor]) -> List[torch.Tensor]:
         groups.setdefault(t.dtype, []).append(i)
     for idx in groups.values():
         flat = torch.cat([tensors[i].reshape(-1) for i in idx])
-        dist.all_reduce(flat)
+        dist.all_reduce(flat, group=group)
         for i, part in zip(idx, flat.split([tensors[i].numel() for i in idx])):
             out[i] = part.view(tensors[i].shape)
     return out
 
 
-def all_reduce_mean(tensors: List[torch.Tensor]) -> List[torch.Tensor]:
-    """``tensors`` averaged over the ranks (see :func:`all_reduce_sum`)."""
+def all_reduce_mean(tensors: List[torch.Tensor], group: Any = None) -> List[torch.Tensor]:
+    """``tensors`` averaged over ``group`` (see :func:`all_reduce_sum`)."""
     if not dist.is_initialized():
         return list(tensors)
-    return [t / world_size() for t in all_reduce_sum(tensors)]
+    n = dist.get_world_size(group)
+    return [t / n for t in all_reduce_sum(tensors, group)]
+
+
+def _sum_fp32(x: torch.Tensor, group: Any) -> torch.Tensor:
+    """``x`` summed over ``group`` in fp32 (gloo has no bf16 sum), in x's
+    dtype."""
+    y = x.to(torch.float32, copy=True).contiguous()
+    dist.all_reduce(y, group=group)
+    return y.to(x.dtype)
+
+
+class _ModelSum(torch.autograd.Function):
+    """The model group's sum of the heads' partial ``out_proj`` outputs:
+    ``all_reduce`` forward; backward the identity (every position's partial
+    output feeds the same sum)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _sum_fp32(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _ModelCopy(torch.autograd.Function):
+    """The entry into the head-parallel region: the identity forward (every
+    position reads the same features); backward the sum of the positions'
+    gradients, each of which covers its own heads only."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _sum_fp32(grad, ctx.group), None
+
+
+def model_sum(x: torch.Tensor, group: Any) -> torch.Tensor:
+    """``x`` summed over the model group ``group`` (fp32 sum, x's dtype),
+    with the gradient passed through unchanged."""
+    return _ModelSum.apply(x, group)
+
+
+def model_copy(x: torch.Tensor, group: Any) -> torch.Tensor:
+    """``x`` as it is, its gradient summed over the model group ``group``."""
+    return _ModelCopy.apply(x, group)

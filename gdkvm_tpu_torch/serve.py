@@ -25,12 +25,19 @@ Design:
   - Backpressure: in-flight request bytes are bounded (``max_inflight_mb``);
     beyond the bound ``infer`` raises :class:`EngineOverloaded` (HTTP 429).
   - Idle sessions are reclaimed after ``session_ttl`` seconds.
-  - Over a mesh (``mesh=``, parallel/mesh.py, ``data`` = D devices) the S
-    slots split into D groups of S/D, one group per device of the mesh,
-    each with the model's replica on that device (one replica a distinct
-    device) and its own state.  A request is staged on its slot's device; a
-    tick launches every group's step, then gathers each group's masks.
-    Slots never interact, so the masks are the one-device engine's.
+  - Over a mesh (``mesh=``, parallel/mesh.py, ``data`` × ``model``
+    devices) the S slots split into D groups of S/D, one group per row of
+    the mesh, each with its own state.  With ``model`` = 1 a group holds
+    the model's replica on its device (one replica a distinct device); with
+    ``model`` = M > 1 it spreads the model over its row's M devices
+    (models/gdkvm.py's ``HeadParallel``): each device holds a shard of the
+    LKVA heads and those heads of each slot's state, and the row's first
+    device runs the encoder and the decoder and sums the shards' partial
+    readouts.  A request is staged on its group's first device; a tick
+    launches every group's step, then gathers each group's masks.  Slots
+    never interact, so with ``model`` = 1 the masks are the one-device
+    engine's, and with M > 1 they differ only by the order of the heads'
+    sum.
 
 The engine runs on its model's device (an artifact's: where it was
 exported; a mesh's devices) and never moves work elsewhere: a CUDA model
@@ -64,7 +71,7 @@ import torch
 from gdkvm_tpu_torch.eval.metrics import mask_from_logits
 from gdkvm_tpu_torch.eval.streaming import model_device
 from gdkvm_tpu_torch.io.export import ServingModel, load_artifact
-from gdkvm_tpu_torch.models.gdkvm import GDKVM, StreamState
+from gdkvm_tpu_torch.models.gdkvm import GDKVM, HeadParallel, StreamState
 from gdkvm_tpu_torch.ops.preproc import resize_matrices, resize_u8
 
 Tensor = torch.Tensor
@@ -105,23 +112,36 @@ class _Piece:
         self.depth: int = 0
 
 
-def _model_step(model: GDKVM):
-    """The engine's step around ``model``: (frames_u8, mem, seen) →
-    (logits, mem, seen)."""
-    def step(frames_u8, mem, seen):
+def _model_step(model: GDKVM | HeadParallel):
+    """The engine's step around ``model``: (frames_u8, mems, seen) →
+    (logits, mems, seen), ``mems`` the tuple of the state's memory tensors
+    (one; a HeadParallel model's, one a device)."""
+    spread = isinstance(model, HeadParallel)
+
+    def step(frames_u8, mems, seen):
         logits, st = model(frames_u8.to(torch.float32) / 255.0,
-                           StreamState(mem=mem, frames_seen=seen))
-        return logits, st.mem, st.frames_seen
+                           StreamState(mem=mems if spread else mems[0], frames_seen=seen))
+        return logits, st.mem if spread else (st.mem,), st.frames_seen
+    return step
+
+
+def _artifact_step(sm: ServingModel):
+    """The engine's step around an artifact (one memory tensor)."""
+    def step(frames_u8, mems, seen):
+        logits, mem, seen = sm.step(frames_u8, mems[0], seen)
+        return logits, (mem,), seen
     return step
 
 
 class _Group:
-    """One device's share of the slot pool: slots [lo, hi), the step of the
-    model's replica there, and the slots' state."""
+    """One row of the mesh's share of the slot pool: slots [lo, hi), the
+    step of the model there, and the slots' state: ``mem`` a tuple of the
+    memory of each of the row's devices (their heads; one device without a
+    model axis)."""
 
     def __init__(self, lo: int, hi: int, device: torch.device, raw_step) -> None:
         self.lo, self.hi, self.device, self.raw_step = lo, hi, device, raw_step
-        self.mem: Optional[Tensor] = None
+        self.mem: Tuple[Tensor, ...] = ()
         self.seen: Optional[Tensor] = None
         self.zero: Optional[Tensor] = None
 
@@ -131,8 +151,9 @@ class BatchingEngine:
     model's, or an exported artifact's (``artifact``: its directory or a
     loaded :class:`~gdkvm_tpu_torch.io.export.ServingModel`, exported for
     batch ``streams`` and chunk ``chunk``; the image size is its own).
-    ``mesh`` (a :class:`~gdkvm_tpu_torch.parallel.mesh.Mesh` of D devices,
-    model path only) splits the slots into D groups, one per device;
+    ``mesh`` (a :class:`~gdkvm_tpu_torch.parallel.mesh.Mesh` of D × M
+    devices in this process, model path only) splits the slots into D
+    groups, one per row of M devices, the heads split over the row;
     ``streams`` must divide by D."""
 
     def __init__(self, *, model: Optional[GDKVM] = None, streams: int = 4,
@@ -148,9 +169,6 @@ class BatchingEngine:
                 raise ValueError(
                     "mesh serving requires the model path — an exported "
                     "artifact is already lowered for one device")
-            if mesh.model != 1:
-                from gdkvm_tpu_torch.parallel.mesh import head_parallel_error
-                raise head_parallel_error(f"serving over a {mesh.data}x{mesh.model} mesh")
             if mesh.distributed:
                 raise ValueError("mesh serving drives every device from one process; "
                                  "a mesh over a process group has one")
@@ -169,22 +187,28 @@ class BatchingEngine:
                     f"--batch/--chunk matching the serve config")
             self.image_size, self.in_channels = sig["frames_u8"][2], sig["frames_u8"][4]
             self.num_classes = sm.meta["num_classes"]
-            mem_shape = tuple(sig["mem"])
-            self._groups = [_Group(0, streams, sm.device, sm.step)]
+            mem_shapes = [((sm.device,), tuple(sig["mem"][1:]))]
+            self._groups = [_Group(0, streams, sm.device, _artifact_step(sm))]
         else:
             cfg = model.cfg
             self.image_size, self.in_channels = image_size, cfg.in_channels
             self.num_classes = cfg.num_classes
-            mem_shape = (streams, cfg.num_heads, cfg.head_dim_k, cfg.head_dim_v)
-            devices = mesh.devices if mesh is not None else (model_device(model),)
-            per = streams // len(devices)
+            rows = ([mesh.row(d) for d in range(mesh.data)] if mesh is not None
+                    else [(model_device(model),)])
+            per = streams // len(rows)
             replicas: Dict[torch.device, GDKVM] = {model_device(model): model}
             self._groups = []
-            for g, dev in enumerate(devices):
-                if dev not in replicas:
-                    replicas[dev] = copy.deepcopy(model).to(dev)
-                self._groups.append(_Group(g * per, (g + 1) * per, dev,
-                                           _model_step(replicas[dev])))
+            for g, row in enumerate(rows):
+                if len(row) > 1:
+                    step_model = HeadParallel(model, row)
+                else:
+                    if row[0] not in replicas:
+                        replicas[row[0]] = copy.deepcopy(model).to(row[0])
+                    step_model = replicas[row[0]]
+                self._groups.append(_Group(g * per, (g + 1) * per, row[0],
+                                           _model_step(step_model)))
+            heads = (cfg.num_heads // len(rows[0]), cfg.head_dim_k, cfg.head_dim_v)
+            mem_shapes = [(row, heads) for row in rows]
         self.device = self._groups[0].device
 
         # Mask transfer packing: exact b-bit encoding, b = bits needed for
@@ -196,9 +220,9 @@ class BatchingEngine:
                                    self.image_size % (8 // bits) == 0) else 8
 
         with torch.inference_mode():
-            for g in self._groups:
-                g.mem = torch.zeros((g.hi - g.lo, *mem_shape[1:]),
-                                    dtype=torch.float32, device=g.device)
+            for g, (row, shape) in zip(self._groups, mem_shapes):
+                g.mem = tuple(torch.zeros((g.hi - g.lo, *shape), dtype=torch.float32,
+                                          device=dev) for dev in row)
                 g.seen = torch.zeros((g.hi - g.lo,), dtype=torch.int32,
                                      device=g.device)
                 g.zero = torch.zeros((chunk, self.image_size, self.image_size,
@@ -268,11 +292,12 @@ class BatchingEngine:
         """
         active, resets = flags[0], flags[1]
         per_slot = (-1, 1, 1, 1)
-        mem_in = g.mem * (1.0 - resets).view(per_slot)
+        mem_in = tuple(m * (1.0 - resets.to(m.device)).view(per_slot) for m in g.mem)
         seen_in = g.seen * (1 - resets.to(torch.int32))
         logits, mem, seen = g.raw_step(frames, mem_in, seen_in)
         masks = mask_from_logits(logits)
-        g.mem = torch.where(active.view(per_slot) > 0, mem, mem_in)
+        g.mem = tuple(torch.where(active.to(m.device).view(per_slot) > 0, m, m0)
+                      for m, m0 in zip(mem, mem_in))
         g.seen = torch.where(active > 0, seen, seen_in)
         return masks
 

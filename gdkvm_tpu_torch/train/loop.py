@@ -10,14 +10,23 @@ updates.  :func:`train` is the run: data from the device cache or the
 prefetched host pipeline, the metrics log, the periodic eval stage,
 checkpoints and resume.
 
-Data parallelism (the JAX package's ``data`` mesh axis) runs one process per
-device in a ``torch.distributed`` group (parallel/distributed.py).  A step
-there is the one-device step on the global batch: every rank draws the same
-global batch and prompt bits, keeps its rows (``parallel.batch_slice``),
-takes the loss over the valid frames of the whole batch (their count is
-summed over the ranks first) and averages its gradients and metrics with
-the others' before the update, so every replica takes the same update.
-Only rank 0 writes the run's files.
+Distribution runs one process per device in a ``torch.distributed`` group
+(parallel/distributed.py) laid out as the JAX package's ``data`` ×
+``model`` mesh (``parallel.data_axis`` × ``parallel.model_axis``,
+parallel/mesh.py).  A step there is the one-device step on the global
+batch: every rank draws the same global batch and prompt bits, keeps its
+data position's rows (``parallel.batch_slice``), takes the loss over the
+valid frames of the whole batch (their count is summed over its data group
+first) and averages its gradients and metrics over its data group before
+the update.  With ``model_axis`` > 1 a rank holds its model position's
+shard of the LKVA heads (models/gdkvm.py): the gradients of the replicated
+LKVA parameters, of which each position uses its heads' rows, are summed
+over its model group, those of the encoder and the decoder averaged over
+the whole mesh, and the global norm of the clip counts each shard's
+squares once over its model group.  Every rank's replicated parameters
+then take the same update, bit for bit; the AdamW moments, the
+accumulation buffer and the EMA are per shard.  Only rank 0 writes the
+run's files.
 
 Under ``gdr_impl="auto"`` (kept at 256² by ``train_model_config``) the GDR
 scan of a CUDA model runs the forward kernel with residuals and the backward
@@ -35,7 +44,7 @@ from typing import Callable, Dict, Iterator, List, Optional, Tuple, Union
 import torch
 import torch.utils.checkpoint
 
-from gdkvm_tpu_torch.config.schema import Config, data_parallel_size, save_config
+from gdkvm_tpu_torch.config.schema import Config, save_config
 from gdkvm_tpu_torch.data import device_cache as dc
 from gdkvm_tpu_torch.data.pipeline import (Batch, batch_iterator, make_dataset,
                                            prefetch_to_device)
@@ -44,7 +53,8 @@ from gdkvm_tpu_torch.io.checkpoint import CheckpointManager
 from gdkvm_tpu_torch.io.metrics_log import MetricsLogger
 from gdkvm_tpu_torch.models.gdkvm import GDKVM, init_params, train_model_config
 from gdkvm_tpu_torch.parallel import distributed
-from gdkvm_tpu_torch.parallel.mesh import batch_slice
+from gdkvm_tpu_torch.parallel.mesh import (Mesh, batch_slice, head_dim, process_mesh,
+                                           run_mesh, shard_state_dict)
 from gdkvm_tpu_torch.train import losses
 from gdkvm_tpu_torch.utils.profiling import (StepTimer, maybe_profile,
                                              trace_annotation)
@@ -78,9 +88,18 @@ def lr_schedule(cfg: Config) -> Callable[[int], float]:
     return schedule
 
 
-def global_norm(tensors: List[Tensor]) -> Tensor:
-    """√(Σ x²) over all tensors, fp32 (``optax.global_norm``)."""
-    return torch.sqrt(sum((x.to(torch.float32) ** 2).sum() for x in tensors))
+def global_norm(tensors: List[Tensor], sharded: Optional[List[bool]] = None,
+                model_group=None) -> Tensor:
+    """√(Σ x²) over all tensors, fp32 (``optax.global_norm``).  Over a
+    model group (``model_group``), the tensors flagged in ``sharded`` are
+    head shards: their squares are summed over the group, the others' (the
+    same on every position) counted once."""
+    if model_group is None:
+        return torch.sqrt(sum((x.to(torch.float32) ** 2).sum() for x in tensors))
+    sq = [(x.to(torch.float32) ** 2).sum() for x in tensors]
+    own = sum(q for q, s in zip(sq, sharded) if s)
+    whole = distributed.all_reduce_sum([own], model_group)[0]
+    return torch.sqrt(whole + sum(q for q, s in zip(sq, sharded) if not s))
 
 
 class Optimizer:
@@ -92,11 +111,15 @@ class Optimizer:
 
     Written out rather than ``clip_grad_norm_``, which adds 1e-6 to the
     norm; the first applied update uses lr = schedule(0) = 0, as optax's.
+    ``norm``: the global norm of a gradient list (a head shard's counts
+    the other shards', see :func:`global_norm`).
     """
 
-    def __init__(self, params: List[Tensor], cfg: Config) -> None:
+    def __init__(self, params: List[Tensor], cfg: Config,
+                 norm: Callable[[List[Tensor]], Tensor] = global_norm) -> None:
         t = cfg.train
         self.params = list(params)
+        self.norm = norm
         self.schedule = lr_schedule(cfg)
         self.grad_clip = t.grad_clip
         self.k = max(t.accum_steps, 1)
@@ -116,7 +139,7 @@ class Optimizer:
                 self.mini_step += 1
                 return False
             grads = self.acc
-        norm = global_norm(grads)
+        norm = self.norm(grads)
         for p, g in zip(self.params, grads):
             p.grad = torch.where(norm < self.grad_clip, g,
                                  (g / norm) * self.grad_clip)
@@ -163,29 +186,57 @@ class Optimizer:
 @dataclass
 class TrainState:
     """The model (its params are the state's params), the optimizer, the
-    micro-step count, the generator of prompt bits and the EMA shadow of
-    the params (None when ``ema_decay`` is 0)."""
+    micro-step count, the generator of prompt bits, the EMA shadow of the
+    params (None when ``ema_decay`` is 0), the mesh the state lies on and,
+    per param, whether it is a head shard (``sharded``) or a replicated
+    LKVA param of which a head shard uses its heads' rows (``partial``: its
+    gradient is summed over the model group)."""
     step: int
     model: GDKVM
     opt: Optimizer
     gen: torch.Generator
     ema: Optional[List[Tensor]] = None
+    mesh: Optional[Mesh] = None
+    sharded: Tuple[bool, ...] = ()
+    partial: Tuple[bool, ...] = ()
 
 
-def create_train_state(cfg: Config, model: GDKVM) -> TrainState:
+def create_train_state(cfg: Config, model: GDKVM,
+                       mesh: Optional[Mesh] = None) -> TrainState:
     """Initialize ``model`` from ``cfg.train.seed`` (the reference
-    initializers) and build its optimizer and EMA."""
-    init_params(model, torch.Generator().manual_seed(cfg.train.seed))
-    return state_for(cfg, model)
+    initializers; a head shard gets its share of the whole model's) and
+    build its optimizer and EMA."""
+    gen = torch.Generator().manual_seed(cfg.train.seed)
+    m_axis, m = model.lkva.heads
+    if m_axis == 1:
+        init_params(model, gen)
+    else:
+        whole = init_params(GDKVM(model.cfg, device="cpu"), gen).state_dict()
+        model.load_state_dict(shard_state_dict(whole, m_axis, m))
+    return state_for(cfg, model, mesh)
 
 
-def state_for(cfg: Config, model: GDKVM) -> TrainState:
-    """A train state around ``model`` as it is (e.g. converted weights)."""
-    params = list(model.parameters())
+def state_for(cfg: Config, model: GDKVM, mesh: Optional[Mesh] = None) -> TrainState:
+    """A train state around ``model`` as it is (e.g. converted weights) on
+    ``mesh`` (default: the data-only mesh of the process group, or of this
+    process alone); a head shard's mesh has its model axis."""
+    names, params = zip(*model.named_parameters())
+    if mesh is None:
+        mesh = process_mesh(params[0].device)
+    if model.lkva.heads[0] != mesh.model:
+        raise ValueError(f"a model of head shards {model.lkva.heads} on a mesh of "
+                         f"model axis {mesh.model}")
+    sharded = tuple(mesh.model > 1 and head_dim(n) is not None for n in names)
+    partial = tuple(mesh.model > 1 and n.startswith("lkva.") and not s
+                    for n, s in zip(names, sharded))
+    norm = global_norm
+    if mesh.model_group is not None:
+        norm = lambda grads: global_norm(grads, list(sharded), mesh.model_group)
     ema = ([p.detach().clone() for p in params]
            if cfg.train.ema_decay > 0 else None)
-    return TrainState(step=0, model=model, opt=Optimizer(params, cfg),
-                      gen=torch.Generator().manual_seed(cfg.train.seed), ema=ema)
+    return TrainState(step=0, model=model, opt=Optimizer(list(params), cfg, norm),
+                      gen=torch.Generator().manual_seed(cfg.train.seed), ema=ema,
+                      mesh=mesh, sharded=sharded, partial=partial)
 
 
 def eval_params(state: TrainState, cfg: Config) -> List[Tensor]:
@@ -217,10 +268,12 @@ class CacheSampler:
     cache's generator from ``(train.seed, 17, data.seed, step)`` and draws
     the step's global batch on the device, so the batch is a pure function
     of the step (the JAX package folds its key the same way); it returns
-    this rank's rows of it (all of them in one process)."""
+    the rows of this process's data position on ``mesh`` (all of them on
+    a data axis of one)."""
     cache: Union[dc.DeviceDataset, dc.VideoDeviceCache]
     cfg: Config
     gen: torch.Generator
+    mesh: Mesh
 
     def sample(self, step: int) -> Batch:
         cfg = self.cfg
@@ -232,9 +285,9 @@ class CacheSampler:
                                           cfg.data.clip_len, **kw)
         else:
             batch = dc.sample_batch(self.cache, self.gen, cfg.train.batch_size, **kw)
-        if distributed.world_size() == 1:
+        if self.mesh.data == 1:
             return batch
-        rows = batch_slice(distributed.rank(), cfg.train.batch_size)
+        rows = batch_slice(self.mesh, cfg.train.batch_size)
         return Batch(batch.frames[rows], batch.masks[rows], batch.valid[rows])
 
 
@@ -246,11 +299,14 @@ def loss_and_grads(state: TrainState, batch: Union[Batch, CacheSampler],
     that draws this step's batch on the device.  Draws the step's prompt
     bits from ``state.gen``.
 
-    In a process group of W ranks ``batch`` holds this rank's rows of a
-    global batch of W times as many (a CacheSampler returns them); the
-    prompt bits are drawn for the global batch and sliced the same way, and
-    the metrics and gradients returned are those of the global batch,
-    averaged (summed, for the checksum) over the ranks.
+    On a mesh of D data positions (``state.mesh``) ``batch`` holds this
+    process's data position's rows of a global batch of D times as many (a
+    CacheSampler returns them); the prompt bits are drawn for the global
+    batch and sliced the same way, and the metrics and gradients returned
+    are those of the global batch, averaged (summed, for the checksum) over
+    the data group; over a model axis the gradients of the parameters that
+    are not head shards are averaged over the whole mesh, the replicated
+    LKVA parameters' partial ones summed over the model group.
 
     Under ``train.remat`` the model's forward runs a second time inside the
     backward, through the GDR's autograd Function too: the forward's
@@ -267,12 +323,13 @@ def loss_and_grads(state: TrainState, batch: Union[Batch, CacheSampler],
     frames = normalize_frames(frames_u8)
     masks = torch.as_tensor(batch.masks, device=dev).long()
     valid = torch.as_tensor(batch.valid, device=dev).to(torch.float32)
-    world = distributed.world_size()
-    b = frames.shape[0] * world
+    mesh = state.mesh
+    data_group = mesh.data_group
+    b = frames.shape[0] * mesh.data
     # Stochastic first-frame prompting, only where frame 0 has ground truth.
     use_prompt = torch.bernoulli(torch.full((b,), t.prompt_prob),
                                  generator=state.gen)
-    use_prompt = use_prompt[batch_slice(distributed.rank(), b)].to(dev)
+    use_prompt = use_prompt[batch_slice(mesh, b)].to(dev)
     prompt_w = use_prompt * valid[:, 0]
     bweight = 1.0 if t.bootstrap_ratio >= 1.0 else losses.bootstrap_schedule(
         state.step, t.num_iterations, t.bootstrap_start, t.bootstrap_end)
@@ -285,24 +342,43 @@ def loss_and_grads(state: TrainState, batch: Union[Batch, CacheSampler],
     else:
         logits, _ = state.model(frames, None, masks[:, 0], prompt_w)
     # The valid frames of the global batch: the loss's denominator.  In a
-    # process group (of one too) every reduction goes through the group.
+    # process group (of one too) the loss is taken as a data position's share.
     grouped = distributed.in_group()
-    valid_total = distributed.all_reduce_sum([valid.sum()])[0] if grouped else None
+    valid_total = (distributed.all_reduce_sum([valid.sum()], data_group)[0]
+                   if data_group is not None else valid.sum()) if grouped else None
     loss, aux = losses.segmentation_loss(
         logits, masks, valid, ce_weight=t.ce_weight, dice_weight=t.dice_weight,
         bootstrap_ratio=t.bootstrap_ratio, bootstrap_weight=bweight,
-        valid_total=valid_total, world=world)
-    grads = distributed.all_reduce_mean(list(torch.autograd.grad(loss, params)))
+        valid_total=valid_total, world=mesh.data)
+    grads = list(torch.autograd.grad(loss, params))
+    if mesh.model_group is None:
+        if data_group is not None:
+            grads = distributed.all_reduce_mean(grads, data_group)
+    else:
+        # Over a model axis: a head shard's gradient is averaged over its
+        # data group; every other one is summed over the whole mesh, which
+        # completes a replicated LKVA parameter's partial gradient (÷ D) and
+        # gives the encoder's and decoder's, which every model position
+        # computes alike, the same bits on every rank (÷ D·M): a card's
+        # convolution backward need not repeat its own bits.
+        whole = [i for i, s in enumerate(state.sharded) if not s]
+        for i, g in zip(whole, distributed.all_reduce_sum([grads[i] for i in whole])):
+            grads[i] = g / (mesh.data * (1 if state.partial[i] else mesh.model))
+        own = [i for i, s in enumerate(state.sharded) if s]
+        if data_group is not None:
+            for i, g in zip(own, distributed.all_reduce_mean([grads[i] for i in own],
+                                                             data_group)):
+                grads[i] = g
     metrics = {k: v.detach() for k, v in aux.items()}
     # Sum of the batch's bytes: two runs that log the same value at a step
     # saw the same batch there (exact below 2^53).
     metrics["batch_checksum"] = (frames_u8.sum(dtype=torch.int64)
                                  + masks.sum()).to(torch.float64)
-    if grouped:
+    if data_group is not None:
         keys = list(metrics)
         packed = torch.stack([metrics[k].to(torch.float64)
-                              / (1 if k == "batch_checksum" else world) for k in keys])
-        packed = distributed.all_reduce_sum([packed])[0]
+                              / (1 if k == "batch_checksum" else mesh.data) for k in keys])
+        packed = distributed.all_reduce_sum([packed], data_group)[0]
         metrics = {k: v.to(metrics[k].dtype) for k, v in zip(keys, packed)}
     return metrics, grads
 
@@ -316,7 +392,7 @@ def train_step(state: TrainState, batch: Union[Batch, CacheSampler], cfg: Config
     t = cfg.train
     metrics, grads = loss_and_grads(state, batch, cfg)
     norm_key = "micro_grad_norm" if t.accum_steps > 1 else "grad_norm"
-    metrics[norm_key] = global_norm(grads)
+    metrics[norm_key] = state.opt.norm(grads)
     applied = state.opt.step(grads)
     if state.ema is not None and applied:
         with torch.no_grad():
@@ -345,28 +421,30 @@ def train(cfg: Config, max_steps: Optional[int] = None,
     micro-steps in all (default ``num_iterations``) and returns the last
     logged metrics and the last eval's, as floats.
 
-    Under an initialized process group (parallel/distributed.py) this
-    process trains its rank's share of every global batch on ``device``
-    (the rank's own): ``parallel.data_axis`` must be -1 or the world size
-    and ``train.batch_size``, the global batch, must split over the ranks.
-    Every rank builds the same parameters from the seed, restores the same
-    checkpoint on resume and returns the same metrics; rank 0 alone writes
-    the run dir."""
+    Under an initialized process group (parallel/distributed.py) the ranks
+    form the ``parallel.data_axis`` × ``parallel.model_axis`` mesh
+    (``config.schema.data_parallel_size`` checks it): this process trains
+    its data position's share of every global batch on ``device`` (the
+    rank's own) with its model position's head shard.  Every rank builds
+    the same parameters from the seed (its shard of them), restores the
+    same checkpoint on resume and returns the same metrics; rank 0 alone
+    writes the run dir, its checkpoints whole (gathered over its model
+    group).  In one process the mesh is one device: ``model_axis`` > 1
+    raises, as the JAX package's ``make_mesh`` does on one device."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("train: no CUDA device; pass device='cpu' to train "
                            "on the CPU")
-    world, rank = distributed.world_size(), distributed.rank()
-    data_parallel_size(cfg, world)
+    rank = distributed.rank()
+    mesh = run_mesh(cfg, device)
+    model = GDKVM(train_model_config(cfg.model, cfg.data.image_size),
+                  device=device, heads=mesh.heads, model_group=mesh.model_group)
     run_dir = cfg.runtime.run_dir
     if rank == 0:
         os.makedirs(run_dir, exist_ok=True)
         save_config(cfg, os.path.join(run_dir, "config.yaml"))
     logger = MetricsLogger(run_dir, wandb_mode=cfg.eval_stage.wandb_mode)
-
-    model = GDKVM(train_model_config(cfg.model, cfg.data.image_size),
-                  device=device)
-    state = create_train_state(cfg, model)
+    state = create_train_state(cfg, model, mesh)
 
     ckpt = CheckpointManager(os.path.join(run_dir, "checkpoints"))
     start_step = 0
@@ -385,7 +463,7 @@ def train(cfg: Config, max_steps: Optional[int] = None,
     elif cache_mode == "clip":
         cache = dc.build_device_cache(dataset, device)
     if cache is not None:
-        source, it = CacheSampler(cache, cfg, torch.Generator(device=device)), None
+        source, it = CacheSampler(cache, cfg, torch.Generator(device=device), mesh), None
     else:
         it = prefetch_to_device(
             batch_iterator(dataset, cfg.train.batch_size, shuffle=True,
@@ -393,7 +471,7 @@ def train(cfg: Config, max_steps: Optional[int] = None,
                            occlude_prob=cfg.data.occlude_prob,
                            seed=cfg.data.seed,
                            num_workers=cfg.data.num_workers,
-                           start_step=start_step, shard=(rank, world)),
+                           start_step=start_step, shard=(mesh.index, mesh.data)),
             size=cfg.data.prefetch, device=device)
 
     total = cfg.train.num_iterations if max_steps is None else max_steps
@@ -429,7 +507,8 @@ def train(cfg: Config, max_steps: Optional[int] = None,
             if (step_idx + 1) % cfg.train.eval_every == 0 or step_idx + 1 == total:
                 with trace_annotation("eval_stage"), \
                         use_params(model, eval_params(state, cfg)):
-                    last_eval = evaluate(cfg, model, device, step=step_idx + 1)
+                    last_eval = evaluate(cfg, model, device, step=step_idx + 1,
+                                         mesh=mesh)
                 logger.log(step_idx + 1, {f"eval/{k}": v
                                           for k, v in last_eval.items()})
                 timer.reset_window()

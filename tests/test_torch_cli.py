@@ -1,8 +1,7 @@
 """The command line of the port (``python -m gdkvm_tpu_torch``,
 gdkvm_tpu_torch.cli) on the CPU at a narrow size: every ported command
 runs under ``--device cpu`` and prints JSON with the JAX package's keys;
-without it each raises where there is no card; every command and flag that
-is not ported raises its named error; remat gives the plain step.
+without it each raises where there is no card; remat gives the plain step.
 """
 
 import contextlib
@@ -163,21 +162,23 @@ def _serve_one_session(monkeypatch, seen, video):
                          if isinstance(a, list) else str(a))
 def test_unported_commands_and_flags_raise_their_item(argv, item, tmp_path, monkeypatch,
                                                       request):
-    """Head parallelism (item 7) raises its item before anything is written.
-    The commands and flags that cited items 4 and 9 are ported: each case
-    now runs on the CPU on the run's model and is held to the library call
-    it stands for.  ``quant`` writes its scales; each ``--quant-scales``
+    """Every command and flag that cited an item of ROADMAP Queue 1 is
+    ported: each case now runs on the CPU on the run's model and is held to
+    the library call it stands for.  Head parallelism (item 7): ``serve
+    --mesh 2x2`` serves a session over two slot groups with the heads of
+    each over two places, on ≥ 99.9% of the pixels of ``stream_video``;
+    ``train parallel.model_axis=2`` as two gloo ranks of one model group
+    gives one process's run (losses, norms and eval within rtol 1e-5, the
+    same batches).  ``quant`` writes its scales; each ``--quant-scales``
     command equals the same computation on the eager W8A8 model (export:
     the artifact's tag and int8 products; serve: the session's masks
     against ``stream_video``; stream-eval: Dice; parity: the memory
     deltas of ``memory_ablation``); ``bench --mode all --smoke`` writes a
     valid artifact; ``bench --mode all`` wants the card and raises without
     one."""
-    monkeypatch.chdir(tmp_path)          # nothing may be written: the raise comes first
-    if item == 7:
-        with pytest.raises(NotImplementedError, match=rf"ROADMAP Queue 1, .*item {item}:"):
-            main(argv)
-        assert not os.listdir(tmp_path)
+    monkeypatch.chdir(tmp_path)
+    if argv[0] == "train":
+        _train_over_a_model_group(argv, tmp_path)
         return
     if argv == ["bench", "--mode", "all"]:
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -198,19 +199,27 @@ def test_unported_commands_and_flags_raise_their_item(argv, item, tmp_path, monk
         assert out["n_convs"] > 0 and out["scope"] == "encoder"
         assert set(json.load(open("s.json"))) and os.path.exists("s.json")
         return
-    scales = request.getfixturevalue("w8a8_scales")
-    with open(scales) as src, open("s.json", "w") as dst:
-        dst.write(src.read())
-    from gdkvm_tpu_torch.ops import quant
     model, _ = cli._load_model(schema.load_config(None, trained[1]), None,
                                torch.device("cpu"), "testing")
-    qmodel = quant.w8a8_model(model, quant.load_scales("s.json"))
+    if item == 9:
+        scales = request.getfixturevalue("w8a8_scales")
+        with open(scales) as src, open("s.json", "w") as dst:
+            dst.write(src.read())
+        from gdkvm_tpu_torch.ops import quant
+        qmodel = quant.w8a8_model(model, quant.load_scales("s.json"))
     if argv[0] == "export":
         from gdkvm_tpu_torch.io.export import load_artifact
         out = run(argv + ["--chunk", "2"] + over)[-1]
         sm = load_artifact(out["out"])
         assert sm.meta["model_config"]["quant"] == qmodel.cfg.quant
         assert any("_int_mm" in str(n.target) for n in sm.program.graph.nodes)
+    elif argv[:2] == ["serve", "--mesh"]:
+        seen = {}
+        video = np.random.default_rng(5).integers(0, 255, (6, IMAGE, IMAGE, 1), np.uint8)
+        _serve_one_session(monkeypatch, seen, video)
+        out = run(argv + ["--port", "0", "--streams", "2", "--chunk", "4"] + over)[-1]
+        assert out["serving"] and seen["health"]["mesh"] == {"data": 2, "model": 2}
+        assert (seen["masks"] == stream_video(model, video, chunk=4)).mean() >= 0.999
     elif argv[0] == "serve":
         seen = {}
         video = np.random.default_rng(5).integers(0, 255, (4, IMAGE, IMAGE, 1), np.uint8)
@@ -236,6 +245,46 @@ def test_unported_commands_and_flags_raise_their_item(argv, item, tmp_path, monk
         assert deltas and set(deltas) == {k for k in out if k.startswith("memory_delta")}
         for k in deltas:
             assert out[k] == pytest.approx(want[k], abs=1e-6), k
+
+
+def _train_over_a_model_group(argv, tmp_path):
+    """``argv`` (train at model_axis=2) as two ranks of a gloo group on the
+    CPU, against the same run in one process at model_axis=1."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    common = ["num_iterations=2", "batch_size=2", "train.log_every=1",
+              "train.eval_every=2", "train.checkpoint_every=2"] + SMALL
+    env = dict(os.environ, WORLD_SIZE="2", MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+               GDKVM_DIST_TIMEOUT="60", OMP_NUM_THREADS="1",
+               PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    for k in ("GDKVM_COORDINATOR", "GDKVM_NUM_PROCESSES", "GDKVM_PROCESS_ID"):
+        env.pop(k, None)
+    cmd = [sys.executable, "-m", "gdkvm_tpu_torch"] + argv + common + [
+        f"runtime.run_dir={tmp_path / 'ranks'}"]
+    procs = [subprocess.Popen(cmd, cwd=REPO, env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for r in range(2)]
+    try:
+        one = run(["train", "--device", "cpu", f"runtime.run_dir={tmp_path / 'one'}"]
+                  + common)[-1]["final"]
+        outs = [p.communicate(timeout=240) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, (_, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-3000:]
+    assert outs[1][0].strip() == ""                  # rank 0 alone prints
+    got = json.loads(outs[0][0].strip().splitlines()[-1])["final"]
+    assert set(got) == set(one)
+    for k, v in one.items():
+        if k not in ("steps_per_sec", "sec_per_step", "frames_per_sec"):
+            np.testing.assert_allclose(got[k], v, rtol=1e-5, atol=1e-7, err_msg=k)
+    assert got["batch_checksum"] == one["batch_checksum"]
+    assert sorted(os.listdir(tmp_path / "ranks" / "checkpoints")) == ["step_00000002.pt"]
 
 
 def _clear_launcher_env(monkeypatch):

@@ -318,12 +318,26 @@ def test_make_mesh_shapes_and_errors():
 
 
 def test_head_parallelism_raises_item_7(tmp_path):
-    """model > 1 shards the LKVA heads in the JAX package: not ported."""
-    cpu = torch.device("cpu")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP Queue 1, item 7: .*head"):
-        make_mesh(data=2, model=2, devices=[cpu] * 4)
+    """model > 1, the LKVA heads over a 'model' axis: make_mesh gives JAX's
+    shapes and errors (tests/test_sharding.py::test_make_mesh_shapes) with
+    the devices row-major, as JAX's reshape(data, model); a one-process
+    train at model_axis=2 raises as JAX's make_mesh does on one device,
+    before it writes anything."""
+    devs = [torch.device("cpu", i) for i in range(8)]
+    assert make_mesh(devices=devs).shape == {"data": 8, "model": 1}
+    m = make_mesh(data=4, model=2, devices=devs)
+    assert m.shape == {"data": 4, "model": 2} and not m.distributed
+    assert m.devices == tuple(devs) and m.row(1) == (devs[2], devs[3])
+    assert make_mesh(data=2, model=2, devices=devs[:4]).row(1) == (devs[2], devs[3])
+    assert make_mesh(model=2, devices=devs[:4]).shape == {"data": 2, "model": 2}
+    with pytest.raises(ValueError, match="mesh 5x2 exceeds 8 devices"):
+        make_mesh(data=5, model=2, devices=devs)
+    assert batch_slice(m, 8) == slice(0, 2)
+    assert batch_slice(Mesh(data=2, devices=(devs[0],), index=1, model=2, model_index=1),
+                       8) == slice(4, 8)
+    assert Mesh(data=1, devices=(devs[0],), model=2).distributed
     cfg = load_config(None, R.TINY + ["parallel.model_axis=2", f"runtime.run_dir={tmp_path}"])
-    with pytest.raises(NotImplementedError, match=r"ROADMAP Queue 1, item 7"):
+    with pytest.raises(ValueError, match="1 devices not divisible by model=2"):
         train(cfg, max_steps=1, device="cpu")
     assert not os.listdir(tmp_path)
 

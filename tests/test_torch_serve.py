@@ -467,11 +467,21 @@ def test_engine_threads_take_the_residual_free_kernel(fwd):
 
 
 def test_unported_serving_options_raise(small_model):
-    """A mesh with a model axis (the heads over devices) raises citing item
-    7; a mesh with an artifact, or a pool that does not split over the
-    mesh, raises as in the JAX package."""
+    """A mesh with a model axis serves: a 1x2 mesh of the CPU (the heads
+    split over its two places) gives stream_video's masks on ≥ 99.9% of the
+    pixels; a mesh over a process group, a mesh with an artifact, or a
+    pool that does not split over the mesh raises as in the JAX package."""
     cpu = torch.device("cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 7"):
+    video = _video(45, t=6)
+    eng = BatchingEngine(model=small_model, streams=2, chunk=CHUNK, image_size=SIZE,
+                         mesh=make_mesh(data=1, model=2, devices=[cpu] * 2))
+    try:
+        assert len(eng._groups[0].mem) == 2
+        got = eng.infer(eng.open_session()["session"], video)
+    finally:
+        eng.close()
+    assert (got == stream_video(small_model, video, chunk=CHUNK)).mean() >= 0.999
+    with pytest.raises(ValueError, match="drives every device from one process"):
         BatchingEngine(model=small_model, mesh=Mesh(data=1, devices=(cpu,), model=2),
                        warmup=False)
     with pytest.raises(ValueError, match="requires the model path"):
