@@ -88,7 +88,19 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    ``sweep``; ``scale``; and ``stream-eval`` of the two other documented
    models, ``gdkvm_rt_112`` (H=2, d=48) and ``gdkvm_base_256`` (H=6,
    N=256), against the same call under ``gdr_impl=chunked``;
-12. W8A8 quantized serving (the seventh main path): the ts8 model at full
+12. the mount-day chain (the eighth main path; docs/REPRODUCE.md, "Mount
+   day"): raw CAMUS ``.mhd``/``.raw`` half-sequences at 320 x 288 with
+   anisotropic spacing, written from a seed, through ``convert-camus
+   --split-mode official``, ``validate-data``, ``train`` of
+   ``configs/config_gdkvm_01.yaml`` at its model widths, ``parity`` (HD95
+   in mm over 2 folds, biplane EF in mL, the ablation), ``export --chunk 16
+   --batch 8`` and ``serve --artifact`` (a subprocess) with ``serve-bench
+   --sessions 8``; the card's fp32 parity of the checkpoint against the
+   CPU's; EchoNet MJPG AVIs at 30 and 50 fps through ``validate-data``,
+   ``train`` of ``configs/echonet_stream.yaml`` (occlusion on) and the
+   FPS-aware ``echonet-ef``; every command with ``--device cuda``, every
+   launch counted;
+13. W8A8 quantized serving (the seventh main path): the ts8 model at full
    width on seeded weights at 112² (2 classes) and 256² (4 classes),
    calibrated with absmax and percentile; every eligible conv's W8A8 call on
    the card bit-equal to the same call on the CPU; W8A8 masks against bf16;
@@ -99,10 +111,10 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    W8A8 model's) and ``serve`` (a subprocess), each with ``--quant-scales``;
    ``gdr_assoc`` against ``gdr_chunked`` (values and gradients, fp32) at the
    serving, streaming and training shapes;
-13. ``bench --mode all --device cuda`` (the regression artifact of
+14. ``bench --mode all --device cuda`` (the regression artifact of
    ``eval/regression.py``): no errored section, the artifact valid, each
    section's headline number and the artifact printed;
-14. times on the card: frames/s of streaming and steps/s of training on both
+15. times on the card: frames/s of streaming and steps/s of training on both
    paths; serving frames/s, request latency p50/p95/p99 (16- and 256-frame
    requests), queue wait and service time and peak memory per forward
    split, in turns; each kernel against its plain version at its main
@@ -2413,6 +2425,351 @@ def phase_cli(device, info: dict, roots: dict) -> dict:
             "chain": total["chain_kernel"], "base": base, "source": source}
 
 
+# ------------------------------------------------------------- mount day
+
+GDKVM_01 = os.path.join(CONFIGS, "config_gdkvm_01.yaml")
+ECHONET_STREAM = os.path.join(CONFIGS, "echonet_stream.yaml")
+# Raw CAMUS as it ships: half-sequences of 20 frames at 320 x 288 (rows x
+# columns; the converter resamples both axes to 256), anisotropic
+# ElementSpacing (x, y, z) in mm, official patient numbers (1-400 train,
+# 401-450 val): 8 train clips, one batch of 8, and 2 val patients, one per
+# fold of --folds 2.
+MOUNT_RAW = (20, 320, 288)
+MOUNT_SPACING = (0.308, 0.154, 1.0)
+MOUNT_PATIENTS = {"train": (1, 2, 3, 4), "val": (401, 402)}
+MOUNT_STEPS = {"camus": 24, "echonet": 6}
+# EchoNet: MJPG AVIs of 64 frames at 112², 30 and 50 fps in turn.
+MOUNT_ECHONET = dict(num_train=8, num_val=2, num_frames=64, image_size=112,
+                     fps_cycle=(30.0, 50.0), seed=3)
+# The card against the CPU on one checkpoint, both in fp32: each Dice cell
+# (mean over the fold's patients) within MOUNT_DICE, each biplane volume
+# (mL) within MOUNT_VOLUME_REL of the CPU's.  HD95 is held only as finite:
+# one flipped boundary pixel moves it.
+MOUNT_DICE = 1e-3
+MOUNT_VOLUME_REL = 1e-3
+
+
+def _write_raw_camus(raw: str) -> int:
+    """Both views of each MOUNT_PATIENTS patient, image and ``_gt``, as
+    MetaImage .mhd/.raw half-sequences at MOUNT_SPACING, frames from
+    ``generate_clip`` → the number of clips."""
+    from gdkvm_tpu_torch.data.camus_raw import write_mhd
+    from gdkvm_tpu_torch.data.synthetic import generate_clip
+    t, h, w = MOUNT_RAW
+    numbers = MOUNT_PATIENTS["train"] + MOUNT_PATIENTS["val"]
+
+    def one(seed_num):
+        seed, num = seed_num
+        pat = f"patient{num:04d}"
+        os.makedirs(os.path.join(raw, pat))
+        for v, view in enumerate(("2CH", "4CH")):
+            frames, masks = generate_clip(2 * seed + v, t, h, w, num_classes=4)
+            stem = os.path.join(raw, pat, f"{pat}_{view}_half_sequence")
+            write_mhd(stem + ".mhd", frames[..., 0], spacing=MOUNT_SPACING)
+            write_mhd(stem + "_gt.mhd", masks, spacing=MOUNT_SPACING)
+    with ThreadPoolExecutor(max_workers=len(numbers)) as pool:
+        list(pool.map(one, enumerate(numbers)))
+    return 2 * len(numbers)
+
+
+def _fold_cells(folds: dict) -> dict:
+    """{(fold, view, structure, phase): cell} of a ``parity --folds``
+    result."""
+    return {(r["fold"], view, name, phase): cell
+            for r in folds["per_fold"] for view, names in r["per_structure"].items()
+            for name, phases in names.items() for phase, cell in phases.items()}
+
+
+def phase_mount_day(device, info: dict) -> dict:
+    """The raw-data chain of the mount-day runbook (docs/REPRODUCE.md,
+    "Mount day") on the card, through ``cli.main`` in this process with
+    ``--device cuda`` and every launch counted (``serve`` a subprocess),
+    from raw files written here from a seed:
+
+    CAMUS: .mhd/.raw half-sequences → ``convert-camus --split-mode
+    official`` at its defaults (256², 10 frames) → ``validate-data`` →
+    ``train`` with ``configs/config_gdkvm_01.yaml`` at its model widths
+    (enc 32-64-96-128, H=4, d=64, bf16, batch 8) → ``parity --protocol
+    camus --folds 2`` (HD95 in mm), ``--protocol camus-ef`` (volumes in
+    mL), ``--ablate`` → ``export --chunk 16 --batch 8`` → ``serve
+    --artifact`` (8 streams, chunk 16) with ``serve-bench --sessions 8``;
+    then ``parity --protocol camus --folds 2`` and ``camus-ef`` of the same
+    checkpoint in fp32 with ``--device cuda`` and ``--device cpu``, the
+    Dice cells and volumes held within MOUNT_DICE and MOUNT_VOLUME_REL.
+
+    EchoNet: MJPG AVIs at 112², FileList.csv at 30 and 50 fps,
+    VolumeTracings.csv → ``validate-data`` → ``train`` with
+    ``configs/echonet_stream.yaml`` (2 classes, clip 16, occlude_prob 0.5;
+    at 112² training takes the plain chunked GDR, as the JAX package's
+    does: the one plain route of the phase, counted) → ``parity --protocol
+    echonet-ef --split VAL``, each video scored at its own frame rate.
+
+    Cuts, none of a width: 6 CAMUS patients (4 train, 2 val) of 20 frames
+    at 320 x 288; 24 training steps (one eval stage and one checkpoint, at
+    step 24); ``--folds 2``, not 10; the ablation on 1 video of 8 frames;
+    ``serve-bench`` at its default 256 frames a session; 10 EchoNet videos
+    (8 train, 2 val) of 64 frames and 6 training steps; the wandb mirror
+    off (``eval_stage.wandb_mode=disabled``) in both runs.  Returns the
+    forward kernel's launches."""
+    import math
+    import numpy as np
+    from gdkvm_tpu_torch.config.schema import load_config
+    from gdkvm_tpu_torch.data.echonet import materialize_synthetic_echonet
+    from gdkvm_tpu_torch.serve import ServeClient
+    t_phase = time.perf_counter()
+    total = dict(_ZERO)
+
+    def tally(what: str, want: dict) -> None:
+        for key, n in _expect_counts(what, want).items():
+            total[key] += n
+
+    tmp = _scratch_dir("mount")
+    smi, on = info["smi"], ["--device", "cuda"]
+    _reset_counts()
+
+    # 1. raw CAMUS → the processed layout, official split.
+    raw = os.path.join(tmp, "camus_raw")
+    t0 = time.perf_counter()
+    n_clips = _write_raw_camus(raw)
+    print(f"mount day: raw CAMUS written, {n_clips} .mhd half-sequences + _gt of "
+          f"{MOUNT_RAW[0]} x {MOUNT_RAW[1]} x {MOUNT_RAW[2]} at {MOUNT_SPACING} mm in "
+          f"{time.perf_counter() - t0:.1f} s")
+    processed = os.path.join(tmp, "camus_png256x256_10f")
+    conv = _cli(["convert-camus", "--raw", raw, "--out", processed,
+                 "--split-mode", "official"])[-1]
+    n_train, n_val = (2 * len(MOUNT_PATIENTS[s]) for s in ("train", "val"))
+    with open(os.path.join(processed, "val", "patient0401_2CH", "meta.json")) as fh:
+        meta = json.load(fh)
+    _, h, w = MOUNT_RAW
+    want_mm = [MOUNT_SPACING[1] * h / 256, MOUNT_SPACING[0] * w / 256]
+    print(f"mount day: convert-camus rc 0: {conv['clips_written']} clips; sidecar "
+          f"spacing_mm {meta['spacing_mm']} (from {meta['orig_spacing_mm']} at "
+          f"{meta['orig_size']})")
+    if conv["clips_written"] != n_clips or meta["size"] != [256, 256] \
+            or meta["orig_size"] != [h, w] \
+            or not np.allclose(meta["spacing_mm"], want_mm, rtol=1e-12) \
+            or sorted(os.listdir(os.path.join(processed, "train"))) != sorted(
+                f"patient{p:04d}_{v}" for p in MOUNT_PATIENTS["train"] for v in ("2CH", "4CH")):
+        raise AssertionError(f"convert-camus: {conv}, meta {meta}")
+
+    run_dir = os.path.join(tmp, "camus_run")
+    base = ["--config", GDKVM_01, f"data_path={processed}", f"runtime.run_dir={run_dir}",
+            "eval_stage.wandb_mode=disabled"]
+    report = _cli(["validate-data"] + base)[-1]
+    print(f"mount day: validate-data rc 0: ok {report['ok']}, clips "
+          f"{report['splits']['train']['clips']} train / {report['splits']['val']['clips']} "
+          f"val, geometry {report['splits']['val']['frame_geometry']}")
+    if not report["ok"] or report["splits"]["train"]["clips"] != n_train \
+            or report["splits"]["val"]["clips"] != n_val \
+            or report["splits"]["train"]["frame_geometry"] != ["(256, 256, 1)"]:
+        raise AssertionError(f"validate-data: {report}")
+    tally("convert-camus, validate-data", {})
+
+    # 2. train the recipe: one forward with residuals a step, the stored
+    # backward, one eval pass of residual-free launches (eval batch 1).
+    steps = MOUNT_STEPS["camus"]
+    cadence = [f"num_iterations={steps}", f"train.log_every={steps // 6}",
+               f"train.eval_every={steps}", f"train.checkpoint_every={steps}"]
+    t0 = time.perf_counter()
+    final = _cli(["train"] + on + cadence + base)[-1]["final"]
+    train_s = time.perf_counter() - t0
+    tally("mount-day train", {"fwd_kernel": steps + n_val, "residual_fwd": steps,
+                              "stored_bwd": steps})
+    cfg = load_config(os.path.join(run_dir, "config.yaml"))
+    rows = _jsonl(run_dir)
+    sps = [r["steps_per_sec"] for r in rows if "loss" in r and r["step"] > steps // 6]
+    ckpts = sorted(os.listdir(os.path.join(run_dir, "checkpoints")))
+    print(f"mount day: train rc 0 on {smi}: {steps} steps of config_gdkvm_01 (enc "
+          f"{list(cfg.model.enc_channels)}, H {cfg.model.num_heads}, d "
+          f"{cfg.model.head_dim_k}, {cfg.model.compute_dtype}, batch "
+          f"{cfg.train.batch_size}, device_cache {cfg.data.device_cache}) in "
+          f"{train_s:.1f} s; steps/s by log window " + " ".join(f"{x:.3f}" for x in sps)
+          + f" (median {statistics.median(sps):.3f}); loss {final['loss']:.4f}, eval Dice "
+          f"fg {final['eval/dice_fg_mean']:.4f}; checkpoints {ckpts}")
+    recipe = load_config(GDKVM_01)
+    if not math.isfinite(final["loss"]) or ckpts != [f"step_{steps:08d}.pt"] \
+            or [r["step"] for r in rows if "eval/dice_fg_mean" in r] != [steps] \
+            or cfg.model != recipe.model or cfg.train.batch_size != recipe.train.batch_size \
+            or cfg.data.image_size != 256:
+        raise AssertionError(f"mount-day train: {final}, {ckpts}")
+
+    # 3. parity of the checkpoint: HD95 in mm over 2 folds, EF in mL, the
+    # ablation.  Each fold holds one patient: its 2 clips, one padded batch.
+    t0 = time.perf_counter()
+    folds = _cli(["parity"] + on + ["--protocol", "camus", "--folds", "2"] + base)[-1]
+    folds_s = time.perf_counter() - t0
+    tally("parity camus --folds 2", {"fwd_kernel": 2})
+    print(f"mount day: parity --protocol camus --folds 2 rc 0 in {folds_s:.1f} s: Dice "
+          f"{folds['dice_mean_overall']:.4f}, HD95 {folds['hd95_mean_overall']:.2f} "
+          f"{folds['hd95_units']}, {folds['n_folds_scored']} folds")
+    if folds["hd95_units"] != "mm" or folds["folds"] != 2 or len(folds["per_fold"]) != 2 \
+            or not math.isfinite(folds["dice_mean_overall"]) \
+            or not math.isfinite(folds["hd95_mean_overall"]):
+        raise AssertionError(f"parity camus --folds 2: {folds}")
+    t0 = time.perf_counter()
+    ef = _cli(["parity"] + on + ["--protocol", "camus-ef"] + base)[-1]
+    ef_s = time.perf_counter() - t0
+    tally("parity camus-ef", {"fwd_kernel": 1})
+    print(f"mount day: parity --protocol camus-ef rc 0 in {ef_s:.1f} s: volumes in "
+          f"{ef['volume_units']}, " + "; ".join(
+              f"{r['patient']} EF {r['ef_pred']:.2f} (ref {r['ef_ref']:.2f}) V_ED "
+              f"{r.get('v_ed_ml', float('nan')):.3f} mL" for r in ef["per_patient"]))
+    if ef["n_patients"] != len(MOUNT_PATIENTS["val"]) or ef["volume_units"] != "mL" \
+            or not all("v_ed_ml" in r and "v_es_ml" in r for r in ef["per_patient"]):
+        raise AssertionError(f"parity camus-ef: {ef}")
+    abl = _cli(["parity"] + on + ["--ablate", "--ablate-videos", "1",
+                                  "--ablate-video-len", "8"] + base)[-1]
+    tally("parity --ablate", {"fwd_kernel": 8 * (8 + 8)})   # per frame, + untimed passes
+    print("mount day: parity --ablate rc 0: memory deltas " + " ".join(
+        f"{k[13:]} {v:+.4f}" for k, v in abl.items() if k.startswith("memory_delta")))
+    if len(abl["conditions"]) != 8:
+        raise AssertionError(f"ablation: {abl}")
+
+    # 4. the card against the CPU on the same checkpoint, fp32 on both.
+    fp32 = base + ["model.compute_dtype=float32"]
+    got = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        got[dev] = (_cli(["parity", "--device", dev, "--protocol", "camus", "--folds", "2"]
+                         + fp32)[-1],
+                    _cli(["parity", "--device", dev, "--protocol", "camus-ef"] + fp32)[-1])
+        print(f"mount day: parity camus --folds 2 + camus-ef in fp32, --device {dev}: "
+              f"{time.perf_counter() - t0:.1f} s")
+        if dev == "cuda":
+            tally("parity in fp32 on the card", {"fwd_kernel": 3})
+        else:   # the CPU's scan is the plain one: not a launch on the card
+            counts = _read_counts()
+            if counts != dict(_ZERO, plain_fwd=3):
+                raise AssertionError(f"parity on the CPU: counts {counts}")
+            _reset_counts()
+    cells = {dev: _fold_cells(g[0]) for dev, g in got.items()}
+    if set(cells["cuda"]) != set(cells["cpu"]) or not cells["cpu"]:
+        raise AssertionError(f"Dice cells: {sorted(cells['cuda'])} vs {sorted(cells['cpu'])}")
+    worst_dice = max(abs(cells["cuda"][k]["dice_mean"] - cells["cpu"][k]["dice_mean"])
+                     for k in cells["cpu"])
+    same_n = all(cells["cuda"][k]["n"] == cells["cpu"][k]["n"] for k in cells["cpu"])
+    hd95 = {dev: {k: c.get("hd95_mean", float("nan")) for k, c in cells[dev].items()}
+            for dev in cells}
+    vols = [(a[key], b[key]) for a, b in zip(got["cuda"][1]["per_patient"],
+                                              got["cpu"][1]["per_patient"])
+            for key in ("v_ed_ml", "v_es_ml")]
+    worst_vol = max(abs(a - b) / abs(b) for a, b in vols)
+    print(f"mount day: card against CPU on {smi}, checkpoint step {steps}, fp32: "
+          f"{len(cells['cpu'])} Dice cells, worst |ΔDice| {worst_dice:.2e} (bar "
+          f"{MOUNT_DICE:g}); {len(vols)} volumes, worst relative Δ {worst_vol:.2e} (bar "
+          f"{MOUNT_VOLUME_REL:g}); EF card " + " ".join(
+              f"{r['ef_pred']:.3f}" for r in got["cuda"][1]["per_patient"]) + " CPU "
+          + " ".join(f"{r['ef_pred']:.3f}" for r in got["cpu"][1]["per_patient"]))
+    print("mount day: HD95 (mm), card | CPU: " + "; ".join(
+        f"{'/'.join(str(x) for x in k)} {hd95['cuda'][k]:.3f} | {hd95['cpu'][k]:.3f}"
+        for k in sorted(hd95["cpu"])))
+    if worst_dice > MOUNT_DICE or not same_n or worst_vol > MOUNT_VOLUME_REL \
+            or any(g[0]["hd95_units"] != "mm" or g[1]["volume_units"] != "mL"
+                   for g in got.values()) \
+            or not all(math.isfinite(v) for d in hd95.values() for v in d.values()):
+        raise AssertionError("the card's parity disagrees with the CPU's")
+
+    # 5. export at batch 8 x chunk 16 (tracing launches nothing), serve the
+    # artifact in a process of its own, serve-bench with 8 sessions.
+    art = os.path.join(tmp, "artifact")
+    t0 = time.perf_counter()
+    exported = _cli(["export"] + on + ["--out", art, "--chunk", "16", "--batch", "8"]
+                    + base)[-1]
+    tally("export", {})
+    print(f"mount day: export rc 0 in {time.perf_counter() - t0:.1f} s: "
+          f"{json.dumps(exported['signature'])}, {exported['blob_bytes']} bytes")
+    if exported["platforms"] != [device.type] \
+            or exported["signature"]["frames_u8"] != [8, 16, 256, 256, 1]:
+        raise AssertionError(f"export: {exported}")
+    err_path = os.path.join(tmp, "serve.err")
+    t0 = time.perf_counter()
+    with _serve_subprocess(on + ["--artifact", art, "--streams", "8", "--chunk", "16"]
+                           + base, err_path) as first:
+        client = ServeClient(first["host"], first["port"])
+        before = client.health()
+        if before["num_classes"] != 4 or not before["device"].startswith(device.type) \
+                or (first["streams"], first["chunk"], first["image_size"]) != (8, 16, 256):
+            raise AssertionError(f"serve --artifact: {first}, /healthz {before}")
+        bench = _cli(["serve-bench", "--port", str(first["port"]), "--sessions", "8"])[-1]
+        after = client.health()
+        print(f"mount day: serve --artifact (subprocess, {before['device']}) + serve-bench "
+              f"--sessions 8 rc 0 on {smi}: {json.dumps(bench)}; ticks {before['ticks']} -> "
+              f"{after['ticks']}")
+        if bench["ok"] is not True or bench["frames_total"] != 8 * 256 \
+                or not after["ticks"] > before["ticks"]:
+            raise AssertionError(f"serve-bench: {bench}")
+    print(f"mount day: serve --artifact subprocess, start to exit: "
+          f"{time.perf_counter() - t0:.1f} s")
+    tally("serve-bench (the server is another process)", {})
+
+    # 6. EchoNet: AVIs at two frame rates → validate → train → echonet-ef.
+    echo = os.path.join(tmp, "echonet")
+    t0 = time.perf_counter()
+    materialize_synthetic_echonet(echo, **MOUNT_ECHONET)
+    print(f"mount day: EchoNet layout written in {time.perf_counter() - t0:.1f} s: "
+          f"{MOUNT_ECHONET['num_train']} + {MOUNT_ECHONET['num_val']} MJPG AVIs of "
+          f"{MOUNT_ECHONET['num_frames']} frames at {MOUNT_ECHONET['image_size']}², fps "
+          f"{MOUNT_ECHONET['fps_cycle']}")
+    erun = os.path.join(tmp, "echonet_run")
+    ebase = ["--config", ECHONET_STREAM, f"data_path={echo}", f"runtime.run_dir={erun}",
+             "eval_stage.wandb_mode=disabled"]
+    report = _cli(["validate-data"] + ebase)[-1]
+    n_videos = MOUNT_ECHONET["num_train"] + MOUNT_ECHONET["num_val"]
+    print(f"mount day: validate-data (EchoNet) rc 0: ok {report['ok']}, clips "
+          f"{report['splits']['train']['clips']} train, EF labels "
+          f"{report['splits']['val']['ef_labels']}, geometry "
+          f"{report['splits']['train']['frame_geometry']}")
+    if not report["ok"] or report["splits"]["train"]["clips"] != MOUNT_ECHONET["num_train"] \
+            or report["splits"]["val"]["ef_labels"] != n_videos \
+            or report["splits"]["train"]["frame_geometry"] != ["(112, 112, 1)"]:
+        raise AssertionError(f"validate-data (EchoNet): {report}")
+    tally("validate-data (EchoNet)", {})
+    steps = MOUNT_STEPS["echonet"]
+    t0 = time.perf_counter()
+    final = _cli(["train"] + on + [f"num_iterations={steps}", "train.log_every=2",
+                                   f"train.eval_every={steps}",
+                                   f"train.checkpoint_every={steps}"] + ebase)[-1]["final"]
+    echo_train_s = time.perf_counter() - t0
+    ecfg = load_config(os.path.join(erun, "config.yaml"))
+    # 112²: the chunked GDR under autograd a step, and in the eval pass
+    # (one val video a batch), as the JAX package trains at this size.
+    tally("EchoNet train", {"plain_fwd": steps + MOUNT_ECHONET["num_val"]})
+    print(f"mount day: train (EchoNet) rc 0 on {smi}: {steps} steps of echonet_stream "
+          f"(clip {ecfg.data.clip_len}, occlude_prob {ecfg.data.occlude_prob}, "
+          f"{ecfg.model.num_classes} classes) in {echo_train_s:.1f} s; loss "
+          f"{final['loss']:.4f}, eval Dice fg {final['eval/dice_fg_mean']:.4f}")
+    if not math.isfinite(final["loss"]) or ecfg.data.occlude_prob != 0.5 \
+            or ecfg.data.clip_len != 16 or ecfg.model.num_classes != 2 \
+            or sorted(os.listdir(os.path.join(erun, "checkpoints"))) != [f"step_{steps:08d}.pt"]:
+        raise AssertionError(f"EchoNet train: {final}")
+    t0 = time.perf_counter()
+    res = _cli(["parity"] + on + ["--protocol", "echonet-ef", "--split", "VAL"] + ebase)[-1]
+    per_chunk = math.ceil(MOUNT_ECHONET["num_frames"] / ecfg.eval_stage.stream_chunk)
+    tally("parity echonet-ef", {"fwd_kernel": MOUNT_ECHONET["num_val"] * per_chunk})
+    fps = MOUNT_ECHONET["fps_cycle"]
+    want_fps = [fps[(MOUNT_ECHONET["num_train"] + i) % len(fps)]
+                for i in range(MOUNT_ECHONET["num_val"])]
+    print(f"mount day: parity --protocol echonet-ef rc 0 in {time.perf_counter() - t0:.1f} s: "
+          + "; ".join(f"{r['video']} {r.get('fps')} fps, {r['beats']} beats, ED/ES frames "
+                      f"{r['frame_ed']}/{r['frame_es']}, EF {r['ef_pred']:.2f} (label "
+                      f"{r.get('ef_true', float('nan')):.2f})" for r in res["per_video"])
+          + f"; EF MAE {res.get('ef_mae', float('nan')):.3f}")
+    if res["n_videos"] != MOUNT_ECHONET["num_val"] or res["n_scored"] != res["n_videos"] \
+            or [r.get("fps") for r in res["per_video"]] != want_fps \
+            or not all(math.isfinite(r["ef_pred"]) for r in res["per_video"]) \
+            or not math.isfinite(res["ef_mae"]):
+        raise AssertionError(f"parity echonet-ef: {res}")
+
+    print(f"mount day: counts {total}; {time.perf_counter() - t_phase:.1f} s in all")
+    if not total["fwd_kernel"] > total["residual_fwd"] > 0 \
+            or total["plain_fwd"] != steps + MOUNT_ECHONET["num_val"] \
+            or total["plain_chain"] or total["plain_bwd"] or total["chain_kernel"] \
+            or total["bwd_kernel"]:
+        raise AssertionError(f"mount-day counts {total}")
+    return {"fwd": total["fwd_kernel"] - total["residual_fwd"],
+            "residual": total["residual_fwd"]}
+
+
 # ------------------------------------------------------ W8A8 and gdr_assoc
 
 # gdr_assoc against gdr_chunked on the card, fp32 (TF32 off): o, s_T and
@@ -3505,6 +3862,7 @@ def main() -> int:
     gdn2 = timed(phase_gdn2, device)
     stream_eval_launches = timed(phase_stream_eval, device)
     cli_launches = timed(phase_cli, device, info, run["roots"])
+    mount = timed(phase_mount_day, device, info)
     quant_model = timed(phase_quant_model, device, info)
     quant_cli = timed(phase_quant_cli, device, info, cli_launches)
     timed(phase_assoc, device, info)
@@ -3526,7 +3884,7 @@ def main() -> int:
          "replaces": "gdkvm_tpu/ops/gdr_pallas.py:513",
          "launches": stream["launches"] + serve["fwd_launches"] + export["fwd"]
          + train_launches["fwd"] + run["launches"]["fwd"] + gdn2["fwd"]
-         + stream_eval_launches + cli_launches["fwd"] + quant_model["fwd"]
+         + stream_eval_launches + cli_launches["fwd"] + mount["fwd"] + quant_model["fwd"]
          + quant_cli["fwd"] + dist["fwd"] + bench["fwd"],
          "max_abs_err": max(err_fwd, dist["shard"]["fwd_serve"]["err"],
                             dist["shard"]["fwd_stream"]["err"]),
@@ -3534,7 +3892,7 @@ def main() -> int:
         {"name": "gdr_fwd_residuals", "route": "cuda", "source": src + "gdr_fwd.cu",
          "replaces": "gdkvm_tpu/ops/gdr_pallas.py:513",
          "launches": train_launches["residual"] + run["launches"]["residual"]
-         + gdn2["residual"] + cli_launches["residual"] + dist["residual"]
+         + gdn2["residual"] + cli_launches["residual"] + mount["residual"] + dist["residual"]
          + bench["residual"],
          "max_abs_err": max(err_res, dist["shard"]["fwd_residuals"]["err"]),
          **times["fwd"], "library_ms": None},

@@ -241,6 +241,50 @@ def test_echonet_ef_matches_jax(pair, echonet_root, tmp_path):
         assert a["ef_pred"] == pytest.approx(b["ef_pred"], abs=1e-3)
 
 
+@pytest.fixture(scope="module")
+def echonet_mixed_root(tmp_path_factory):
+    """Four val videos of 64 frames at 30 and 50 fps in turn: long enough
+    for the beat-wise protocol to cut beats at either rate."""
+    pytest.importorskip("cv2")
+    root = str(tmp_path_factory.mktemp("echonet_mixed"))
+    echonet.materialize_synthetic_echonet(root, num_train=0, num_val=4, num_frames=64,
+                                          image_size=IMAGE, seed=6, fps_cycle=(30.0, 50.0))
+    return root
+
+
+def test_echonet_ef_mixed_fps_matches_jax(pair, echonet_mixed_root, tmp_path):
+    """Per-video FPS read from FileList.csv as JAX reads it, and the
+    beat-wise EF of each video cut at its own rate as JAX cuts it: through
+    the ground truth (segment_fn) the results are equal; through the
+    streamed model on converted weights each video's fps, ED/ES frames and
+    beats are equal and its EF within 1e-3 points of JAX's."""
+    root = echonet_mixed_root
+    meta = parity.read_filelist_meta(root)
+    assert meta == jparity.read_filelist_meta(root)
+    assert [meta[f"synth{i:04d}.avi"]["FPS"] for i in range(4)] == [30.0, 50.0, 30.0, 50.0]
+    cfg, jcfg = _cfgs(root, tmp_path, dataset="echonet", stream_chunk=16)
+
+    def segment_fn(video, name):
+        i = int(name.replace("synth", "").replace(".avi", ""))
+        return synthetic.generate_video(6 * 104729 + i, video.shape[0], IMAGE, IMAGE, 2)[1]
+    got = parity.echonet_ef(cfg, None, split="VAL", segment_fn=segment_fn)
+    want = jparity.echonet_ef(jcfg, None, None, split="VAL", segment_fn=segment_fn)
+    assert got == want
+    assert [r["fps"] for r in got["per_video"]] == [30.0, 50.0, 30.0, 50.0]
+    assert all(r["beats"] > 1 for r in got["per_video"])
+    assert got["n_scored"] == 4 and got["ef_mae"] == pytest.approx(0.0, abs=1e-3)
+
+    jmodel, params, model = pair
+    got = parity.echonet_ef(cfg, model, split="VAL")
+    want = jparity.echonet_ef(jcfg, jmodel, params, split="VAL")
+    assert got["n_videos"] == want["n_videos"] == 4
+    for a, b in zip(got["per_video"], want["per_video"]):
+        for key in ("video", "frames", "fps", "ef_true", "frame_ed", "frame_es", "beats"):
+            assert a[key] == b[key], key
+        assert a["ef_pred"] == pytest.approx(b["ef_pred"], abs=1e-3)
+    assert got["ef_mae"] == pytest.approx(want["ef_mae"], abs=1e-3)
+
+
 def test_memory_ablation_matches_jax(pair, tmp_path):
     """The 2 x 2 (x window) study on synthetic videos: the same conditions
     and keys, every Dice within 1e-4 of JAX's, the deltas and the table
