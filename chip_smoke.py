@@ -30,6 +30,11 @@ Phases, each of which fails the run (nonzero exit) when it fails:
 4. streaming (the first main path): the ts8 model at full width streams
    8 × 32-frame chunks at 112² with the state carried, through the forward
    kernel; launches are counted and the result held against the plain GDR;
+   then ``bench_torch.py``, the port's headline entry, as a subprocess at
+   its defaults (one JSON line, a plausible apparent TFLOP/s) and its
+   single-stream, flagship and W8A8 arms in this process with every launch
+   counted; one chunk's FLOP count on the kernel route equal to the chunked
+   route's;
 5. serving (the third main path): the ts8_112 model at full width in a
    ``BatchingEngine`` (8 slots, 16-frame chunks) behind ``make_server``; 8
    ``ServeClient`` sessions stream at once (one ragged, one resized on the
@@ -807,7 +812,104 @@ def phase_model(device) -> dict:
           + " ".join(f"{r['frames_per_sec']:.1f}" for r in runs))
     print(f"peak device memory {torch.cuda.max_memory_allocated(device) / 2**20:.1f} MiB")
     _stream_profile(model, device)
-    return {"launches": counts["fwd_kernel"]}
+    return {"launches": counts["fwd_kernel"],
+            "fps": max(fps_kernel["frames_per_sec"], fps_kernel2["frames_per_sec"])}
+
+
+# bench_torch.py's other arms, in this process: one rep of 10 timed chunks
+# each (after a chunk from the initial state and the 3 warm-up chunks).
+BENCH_ARMS = (("single-stream", {"GDKVM_BENCH_BATCH": "1", "GDKVM_BENCH_CHUNK": "16"}),
+              ("flagship", {"GDKVM_BENCH_MODEL": "flagship"}),
+              ("w8a8", {"GDKVM_BENCH_QUANT": "w8a8"}))
+BENCH_ARM_RUN = {"GDKVM_BENCH_REPS": "1", "GDKVM_BENCH_TIMED_CHUNKS": "10"}
+BENCH_KEYS = {"metric", "value", "unit", "device", "apparent_tflops", "plausible"}
+
+
+def _check_bench_line(what: str, rec: dict, name: str) -> None:
+    import math
+    import bench_torch
+    if set(rec) != BENCH_KEYS or rec["metric"] != bench_torch.METRIC \
+            or rec["unit"] != "frames/sec" or not rec["value"] > 0 \
+            or not (math.isfinite(rec["apparent_tflops"]) and rec["apparent_tflops"] > 0) \
+            or rec["plausible"] is not True or not rec["device"].startswith(name + ", "):
+        raise AssertionError(f"bench_torch.py {what}: {rec}")
+
+
+def phase_bench_entry(device, info: dict, model_fps: float) -> dict:
+    """``bench_torch.py``, the port's headline entry: (a) ``python3
+    bench_torch.py`` at its defaults (ts8, 8 x 32 at 112^2, best of 3 reps
+    of 30 timed chunks) as a subprocess, its one line checked; (b) the
+    single-stream, flagship and W8A8 arms through ``bench_torch.run`` in
+    this process with the launches counted (every chunk one forward launch,
+    W8A8's two calibration batches one each; nothing else); (c) one chunk's
+    FLOP count (``eval/flops.py``) on the kernel route equal to the
+    chunked route's on the card; (d) the default arm's frames/s beside
+    ``phase_model``'s, its apparent TFLOP/s and share of the card's peak.
+    Returns the forward launches of (b)."""
+    import bench_torch
+    import torch
+    from gdkvm_tpu_torch.eval import throughput
+    from gdkvm_tpu_torch.eval.flops import count_flops
+    name = torch.cuda.get_device_name(0)
+
+    # (a) The contract, as the command line runs it.
+    env = {k: v for k, v in _module_env().items() if not k.startswith("GDKVM_BENCH_")}
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, os.path.join(REPO, "bench_torch.py")], cwd=REPO,
+                         env=env, capture_output=True, text=True, timeout=600)
+    dt = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"bench_torch.py: rc {res.returncode}: {res.stderr[-2000:]}")
+    lines = res.stdout.strip().splitlines()
+    if len(lines) != 1:
+        raise AssertionError(f"bench_torch.py printed {len(lines)} lines: {lines}")
+    print(f"bench_torch.py (subprocess, {dt:.1f} s): {lines[0]}")
+    default = json.loads(lines[0])
+    _check_bench_line("default", default, name)
+
+    # (b) The other arms, every launch counted.
+    launches = 0
+    for label, arm in BENCH_ARMS:
+        arm = dict(BENCH_ARM_RUN, **arm)
+        _reset_counts()
+        t0 = time.perf_counter()
+        rec = bench_torch.run(arm, "cuda")
+        dt = time.perf_counter() - t0
+        counts = _read_counts()
+        _reset_counts()
+        want = int(arm["GDKVM_BENCH_REPS"]) * (
+            1 + bench_torch.WARMUP_CHUNKS + int(arm["GDKVM_BENCH_TIMED_CHUNKS"]))
+        want += len(bench_torch.calibration_batches()) if "GDKVM_BENCH_QUANT" in arm else 0
+        print(f"bench_torch [{label}] ({dt:.1f} s): {json.dumps(rec)}; counts {counts}")
+        if counts != dict(_ZERO, fwd_kernel=want):
+            raise AssertionError(f"bench_torch [{label}]: counts {counts}, expected "
+                                 f"{want} forward launches and nothing else")
+        _check_bench_line(label, rec, name)
+        launches += want
+
+    # (c) One 8 x 32 chunk's count: the kernel route against the chunked one.
+    frames = torch.randint(0, 255, (8, 32, 112, 112, 1), generator=torch.Generator()
+                           .manual_seed(4), dtype=torch.uint8).to(device)
+    flops = {}
+    for impl in ("auto", "chunked"):
+        model = bench_torch.bench_model({"GDKVM_BENCH_IMPL": impl}, device)
+        with torch.inference_mode():
+            flops[impl] = count_flops(lambda: throughput.streaming_step(model, frames, None))
+    counts = _read_counts()
+    _reset_counts()
+    print(f"FLOPs of one 8 x 32 chunk at 112^2: kernel route {flops['auto']}, chunked "
+          f"{flops['chunked']}; counts {counts}")
+    if flops["auto"] != flops["chunked"] or counts != dict(_ZERO, fwd_kernel=1, plain_fwd=1):
+        raise AssertionError(f"route-dependent count {flops}, counts {counts}")
+
+    # (d) Against phase_model's streaming run of the same model and shape.
+    peak = throughput.peak_tflops(device)
+    share = "not known" if peak is None else f"{default['apparent_tflops'] / peak:.4f}"
+    print(f"bench_torch default on {info['smi']}: {default['value']} frames/s (phase_model "
+          f"{model_fps:.1f}); apparent {default['apparent_tflops']:.4f} TFLOP/s, "
+          f"{flops['auto'] / 1e9:.4f} GFLOP a chunk, share of the {peak} TFLOP/s "
+          f"bf16 peak {share}")
+    return {"fwd": launches}
 
 
 def _stream_profile(model, device, warmup: int = 3, chunks: int = 3) -> None:
@@ -3853,6 +3955,7 @@ def main() -> int:
     err_chain = timed(phase_chain_vs_plain, device)
     err_fwd = max(err_fwd, timed(phase_solve_vs_plain, device))
     stream = timed(phase_model, device)
+    bench_entry = timed(phase_bench_entry, device, info, stream["fps"])
     serve = timed(phase_serve, device)
     export = timed(phase_export, device, serve)
     train_launches = timed(phase_train, device)
@@ -3885,7 +3988,7 @@ def main() -> int:
          "launches": stream["launches"] + serve["fwd_launches"] + export["fwd"]
          + train_launches["fwd"] + run["launches"]["fwd"] + gdn2["fwd"]
          + stream_eval_launches + cli_launches["fwd"] + mount["fwd"] + quant_model["fwd"]
-         + quant_cli["fwd"] + dist["fwd"] + bench["fwd"],
+         + quant_cli["fwd"] + dist["fwd"] + bench["fwd"] + bench_entry["fwd"],
          "max_abs_err": max(err_fwd, dist["shard"]["fwd_serve"]["err"],
                             dist["shard"]["fwd_stream"]["err"]),
          **fwd_times, "library_ms": None},

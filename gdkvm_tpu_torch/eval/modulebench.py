@@ -10,11 +10,10 @@ Method:
     launch gaps of a host-bound module included.  On the CPU, the host
     clock around the same loop.  Nothing is subtracted:
     ``floor_ms_per_rep`` reads 0.0 and ``_meta["clock"]`` names the clock.
-  - FLOPs: ``torch.utils.flop_counter.FlopCounterMode`` over one call
-    (matrix products and convolutions, 2 a multiply-add), plus the GDR
-    kernels' own counts (``ops/gdr_counts.py``, every product once) for
-    each launch the call made: the counter cannot see a kernel launched
-    through ctypes.
+  - FLOPs: ``eval/flops.py::count_flops`` over one call: the matrix
+    products and convolutions ``FlopCounterMode`` sees (2 a multiply-add),
+    and each GDR scan counted from its shape (``ops/gdr_counts.py``, every
+    product once), the same on every GDR route.
 
 The modules run as the model runs them: their compute-dtype casts are the
 model's own.
@@ -27,29 +26,13 @@ from typing import Callable, Dict
 
 import numpy as np
 import torch
-from torch.utils.flop_counter import FlopCounterMode
 
+from gdkvm_tpu_torch.eval.flops import count_flops
 from gdkvm_tpu_torch.eval.streaming import model_device
 from gdkvm_tpu_torch.models.gdkvm import GDKVM
-from gdkvm_tpu_torch.ops import gdr_counts, gdr_cuda
 from gdkvm_tpu_torch.train import losses
 
 Tensor = torch.Tensor
-
-
-def _flops_of(fn: Callable[[], object], gdr_shape: tuple) -> float:
-    """FLOPs of one call of ``fn()``: the counter's total plus the GDR
-    kernels' counts at ``gdr_shape`` (B, H, T, N, d_k, d_v) for each launch
-    the call made."""
-    before = (gdr_cuda.LAUNCHES.n, gdr_cuda.CHAIN_LAUNCHES.n, gdr_cuda.BWD_LAUNCHES.n)
-    with FlopCounterMode(display=False) as counter:
-        fn()
-    fwd, chain, bwd = (c.n - b for c, b in zip(
-        (gdr_cuda.LAUNCHES, gdr_cuda.CHAIN_LAUNCHES, gdr_cuda.BWD_LAUNCHES), before))
-    return float(counter.get_total_flops()
-                 + fwd * gdr_counts.fwd_ops(*gdr_shape, None)
-                 + chain * gdr_counts.chain_ops(*gdr_shape, None)
-                 + bwd * gdr_counts.bwd_ops(*gdr_shape, None))
 
 
 def _timed(fn: Callable[[], object], reps: int, device: torch.device,
@@ -73,11 +56,11 @@ def _timed(fn: Callable[[], object], reps: int, device: torch.device,
     return (time.perf_counter() - t0) / reps * 1e3
 
 
-def _rows(mods: Dict[str, Callable[[], object]], reps: int, device: torch.device,
-          gdr_shape: tuple) -> Dict[str, Dict[str, float]]:
+def _rows(mods: Dict[str, Callable[[], object]], reps: int, device: torch.device
+          ) -> Dict[str, Dict[str, float]]:
     out: Dict[str, Dict[str, float]] = {}
     for name, fn in mods.items():
-        flops = _flops_of(getattr(fn, "for_flops", fn), gdr_shape)
+        flops = float(count_flops(getattr(fn, "for_flops", fn)))
         ms = _timed(fn, reps, device)
         out[name] = {
             "flops_per_call": flops,
@@ -95,7 +78,7 @@ def _meta(device: torch.device, **kw) -> Dict[str, object]:
         device=(torch.cuda.get_device_name(device) if device.type == "cuda"
                 else "cpu"),
         method="mean over reps calls after a warm-up, no floor subtracted; "
-               "FLOPs from FlopCounterMode plus the GDR kernels' own counts")
+               "FLOPs from FlopCounterMode, each GDR scan by its shape")
 
 
 def _inputs(model: GDKVM, image_size: int, chunk: int, batch: int, seed: int):
@@ -109,9 +92,7 @@ def _inputs(model: GDKVM, image_size: int, chunk: int, batch: int, seed: int):
         0, c.num_classes, (batch, chunk, image_size, image_size),
         np.int32)).to(device).long()
     valid = torch.ones((batch, chunk), dtype=torch.float32, device=device)
-    gdr_shape = (batch, c.num_heads, chunk, (image_size // 16) ** 2,
-                 c.head_dim_k, c.head_dim_v)
-    return device, frames, masks, valid, gdr_shape
+    return device, frames, masks, valid
 
 
 def _split(model: GDKVM, frames: Tensor):
@@ -134,8 +115,7 @@ def module_breakdown(model: GDKVM, *, image_size: int = 112, chunk: int = 16,
     """FLOPs and ms per module of the forward, on the model's device, under
     ``torch.inference_mode()``: rows ``encoder``, ``lkva_gdr``, ``decoder``,
     ``full_model``, ``loss`` and ``_meta``."""
-    device, frames, masks, valid, gdr_shape = _inputs(model, image_size, chunk,
-                                                      batch, seed)
+    device, frames, masks, valid = _inputs(model, image_size, chunk, batch, seed)
     b, t, hh, ww, ci = frames.shape
     (f4, f8, f16), f16_seq, state0, ro = _split(model, frames)
     logits = model.decoder(f4, f8, f16, ro, (hh, ww))
@@ -149,7 +129,7 @@ def module_breakdown(model: GDKVM, *, image_size: int = 112, chunk: int = 16,
         lg5 = logits.reshape(b, t, hh, ww, -1)
         mods["loss"] = lambda: losses.segmentation_loss(lg5, masks, valid)[0]
 
-    out = _rows(mods, reps, device, gdr_shape)
+    out = _rows(mods, reps, device)
     full_ms = out["full_model"]["ms_per_call"]
     for row in out.values():
         row["pct_of_full_time"] = round(100 * row["ms_per_call"]
@@ -187,8 +167,7 @@ def grad_breakdown(model: GDKVM, *, image_size: int = 256, chunk: int = 10,
     Rows overlap the full step rather than summing to it; use them to rank
     line items.  FLOPs cover the forward and the backward.
     """
-    device, frames, masks, valid, gdr_shape = _inputs(model, image_size, chunk,
-                                                      batch, seed)
+    device, frames, masks, valid = _inputs(model, image_size, chunk, batch, seed)
     b, t, hh, ww, ci = frames.shape
     prompt_mask = masks[:, 0]
     prompt_w = torch.full((b,), 0.5, dtype=torch.float32, device=device)
@@ -237,7 +216,7 @@ def grad_breakdown(model: GDKVM, *, image_size: int = 256, chunk: int = 10,
         total.for_flops = lambda: (full_grads.for_flops(), opt.step(grads))
         mods["train_step_total"] = total
 
-    out = _rows(mods, reps, device, gdr_shape)
+    out = _rows(mods, reps, device)
     ref = out.get("train_step_total", out["full_fwd_bwd"])["ms_per_call"]
     for row in out.values():
         row["pct_of_step_time"] = round(

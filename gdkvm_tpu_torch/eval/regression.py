@@ -10,6 +10,8 @@ Sections:
 
 - serve_112     — 112² 2-class streaming, 8 streams × 32-frame chunks, per arm
 - serve_256     — 256² 4-class streaming, 8 streams × 16-frame chunks, per arm
+                  (both with ``measure_streaming_fps``'s apparent TFLOP/s and
+                  ``plausible``: None where the card's peak is not known)
 - train_step    — the 256² recipe step (batch 8, clip 10, 4 classes), per arm
 - gdr_kernel_ab — the CUDA GDR forward (``gdr_impl="pallas"``, one
                   residual-free launch) against the plain ``gdr_chunked`` at
@@ -119,7 +121,8 @@ def _serve_section(arm: str, num_classes: int, image_size: int, chunk: int,
                                   timed_chunks=timed) for _ in range(reps)]
     best = max(runs, key=lambda r: r["frames_per_sec"])
     out = {k: best[k] for k in ("frames_per_sec", "ms_per_frame", "chunk",
-                                "batch", "image_size")}
+                                "batch", "image_size", "apparent_tflops",
+                                "plausible")}
     out["reps_raw_fps"] = [round(r["frames_per_sec"], 1) for r in runs]
     return out
 
@@ -396,6 +399,8 @@ def _validate_leaf(name: str, sec: Dict) -> None:
         return
     if name in ("serve_112", "serve_256", "serve_bench"):
         _check(sec["frames_per_sec"] > 0, (name, sec))
+        if name != "serve_bench":           # streaming: JAX's plausibility keys
+            _check(sec.get("apparent_tflops", 0) > 0 and "plausible" in sec, (name, sec))
     elif name == "train_step":
         _check(sec["steps_per_sec"] > 0, sec)
     elif name == "gdr_kernel_ab":

@@ -9,6 +9,10 @@ the card's).  None has a default device: the caller says where.
 Each chunk's step returns a 4-byte checksum of its masks.  A timer ends on
 ``.item()`` of a checksum (or of the loss): work on one CUDA stream runs in
 order, so that one fetch waits for everything queued before it.
+
+A physical-plausibility cross-check (apparent FLOP/s against the card's
+peak) is reported, so that a timing artifact shows in the output: the FLOPs
+of a chunk are ``eval/flops.py``'s count, the same whichever GDR route runs.
 """
 
 from __future__ import annotations
@@ -19,14 +23,26 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from gdkvm_tpu_torch.eval.flops import count_flops
 from gdkvm_tpu_torch.eval.metrics import mask_from_logits
 from gdkvm_tpu_torch.models.gdkvm import GDKVM, StreamState
 
 Tensor = torch.Tensor
 
+# Dense bf16 tensor-core peak (TFLOP/s) by ``torch.cuda.get_device_name``:
+# NVIDIA's H100 datasheet figures (SXM5 and PCIe parts, without sparsity),
+# the ceiling of a plausible apparent FLOP/s.
+BF16_PEAK_TFLOPS = {"NVIDIA H100 80GB HBM3": 989.4, "NVIDIA H100 PCIe": 756.5}
+
 
 def _device_name(device: torch.device) -> str:
     return torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+
+
+def peak_tflops(device: torch.device) -> Optional[float]:
+    """The card's dense bf16 peak from :data:`BF16_PEAK_TFLOPS`; None for a
+    card not in the table and for the CPU."""
+    return BF16_PEAK_TFLOPS.get(_device_name(device))
 
 
 def streaming_step(model: GDKVM, frames_u8: Tensor,
@@ -47,13 +63,19 @@ def measure_streaming_fps(model: GDKVM, device: torch.device, *,
     """Frames/s of chunked streaming inference with the state carried.
 
     ``batch`` streams run as one batch; frames/s counts all of them.  The
-    model runs ``1 + warmup_chunks + timed_chunks`` chunks.
+    model runs ``1 + warmup_chunks + timed_chunks`` chunks; the first, from
+    the initial state, is counted by ``eval/flops.py`` for
+    ``apparent_tflops``.  ``plausible``: the apparent rate is at most the
+    card's peak (:func:`peak_tflops`), None where the peak is not known.
     """
     rng = np.random.default_rng(seed)
     frames = torch.from_numpy(rng.integers(
         0, 255, (batch, chunk, image_size, image_size, 1), np.uint8)).to(device)
 
-    _, checksum, state = streaming_step(model, frames, None)
+    first = []
+    flops_per_chunk = count_flops(
+        lambda: first.extend(streaming_step(model, frames, None)))
+    _, checksum, state = first
     checksum.item()
     for _ in range(warmup_chunks):
         _, checksum, state = streaming_step(model, frames, state)
@@ -66,6 +88,8 @@ def measure_streaming_fps(model: GDKVM, device: torch.device, *,
     dt = time.perf_counter() - t0
 
     total = timed_chunks * chunk * batch
+    tflops = flops_per_chunk * timed_chunks / dt / 1e12
+    peak = peak_tflops(device)
     return {
         "frames_per_sec": total / dt,
         "ms_per_frame": 1e3 * dt / total,
@@ -74,6 +98,8 @@ def measure_streaming_fps(model: GDKVM, device: torch.device, *,
         "image_size": image_size,
         "timed_frames": total,
         "elapsed_sec": dt,
+        "apparent_tflops": tflops,
+        "plausible": None if peak is None else bool(tflops <= peak),
         "device": _device_name(device),
     }
 

@@ -18,6 +18,8 @@ over the shards.  ``M`` must divide H.
 
 from __future__ import annotations
 
+import contextvars
+import functools
 from typing import Tuple
 
 import torch
@@ -38,6 +40,9 @@ GDR_IMPLS = {
     "assoc": gdr.gdr_assoc,
     "ref": gdr.gdr_ref,
 }
+# While eval/flops.py counts a call, the scan runs through its tally:
+# ``tap(scan, q, k, v, beta, alpha, s0, eta)``.  None otherwise.
+GDR_TAP: contextvars.ContextVar = contextvars.ContextVar("GDR_TAP", default=None)
 
 
 def _l2norm(x: Tensor, eps: float = 1e-6) -> Tensor:
@@ -143,7 +148,8 @@ class LKVAMemory(nn.Module):
             self._own(self.alpha_proj, pooled.to(self.dtype)).to(torch.float32))
 
         # (B, H, T, N, d) for the scan; the kernel takes contiguous tensors.
-        o, new_state = GDR_IMPLS[self.gdr_impl](
+        scan, tap = GDR_IMPLS[self.gdr_impl], GDR_TAP.get()
+        o, new_state = (scan if tap is None else functools.partial(tap, scan))(
             q.permute(0, 3, 1, 2, 4).contiguous(),
             k.permute(0, 3, 1, 2, 4).contiguous(),
             v.permute(0, 3, 1, 2, 4).contiguous(),

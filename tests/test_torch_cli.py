@@ -687,7 +687,7 @@ BENCH = ["--chunk", "2", "--batch", "2", "--image-size", str(IMAGE)] + NARROW_OV
 
 @pytest.mark.parametrize("mode,keys", [
     ("stream", {"frames_per_sec", "ms_per_frame", "chunk", "batch", "image_size",
-                "timed_frames", "elapsed_sec", "device"}),
+                "timed_frames", "elapsed_sec", "apparent_tflops", "plausible", "device"}),
     ("latency", {"chunk", "batch", "image_size", "calls", "latency_ms_p50", "latency_ms_p95",
                  "latency_ms_p99", "latency_ms_mean", "latency_ms_per_frame_p50", "device"}),
 ])
@@ -697,6 +697,8 @@ def test_bench_stream_and_latency_print_jax_keys(mode, keys):
     out = run(["bench", "--device", "cpu", "--mode", mode] + BENCH)[-1]
     assert set(out) == keys and out["device"] == "cpu"
     assert out["chunk"] == 2 and out["batch"] == 2 and out["image_size"] == IMAGE
+    if mode == "stream":           # no peak is known for the CPU
+        assert out["apparent_tflops"] > 0 and out["plausible"] is None
 
 
 def test_bench_train_prints_jax_keys():

@@ -151,7 +151,7 @@ def test_port_imports_without_jax():
                  "utils.profiling", "utils.optional", "cli", "__main__",
                  "config.yaml_subset", "eval.infer", "eval.modulebench",
                  "utils.scaling", "ops.gdr_counts", "io.export", "parallel.distributed",
-                 "parallel.mesh", "ops.quant", "eval.regression"):
+                 "parallel.mesh", "ops.quant", "eval.regression", "eval.flops"):
         assert f"gdkvm_tpu_torch.{name}" in mods, name
     res = subprocess.run([sys.executable, "-c", _GUARD, *mods], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
@@ -161,8 +161,9 @@ def test_port_imports_without_jax():
 
 def test_no_jax_imports_in_sources():
     """Static scan: no import of jax, flax, optax, orbax, yaml or gdkvm_tpu
-    in the port, in chip_smoke.py or in kernel_turns.py."""
-    files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "kernel_turns.py"]
+    in the port, in chip_smoke.py, kernel_turns.py or bench_torch.py."""
+    files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "kernel_turns.py",
+                                         REPO / "bench_torch.py"]
     bad = []
     for f in files:
         for node in ast.walk(ast.parse(f.read_text(), str(f))):

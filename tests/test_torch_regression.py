@@ -46,6 +46,9 @@ def test_smoke_artifact_is_valid_and_complete(smoke_artifact):
 def test_smoke_artifact_measures_each_arm(smoke_artifact, arm):
     secs = smoke_artifact["sections"]
     assert secs["serve_112"][arm]["frames_per_sec"] > 0
+    for name in ("serve_112", "serve_256"):          # the streaming sections
+        sec = secs[name][arm]
+        assert sec["apparent_tflops"] > 0 and sec["plausible"] is None, (name, sec)
     assert secs["serve_256"][arm]["image_size"] == 48
     assert secs["train_step"][arm]["steps_per_sec"] > 0
     qa = secs["quant_ab"][arm]["tiny"]
@@ -87,6 +90,16 @@ def test_validate_artifact_checks_the_kernel_row(smoke_artifact):
         regression.validate_artifact(art)
     with pytest.raises(AssertionError):
         regression.validate_artifact(dict(smoke_artifact, schema="gdkvm-bench-all/v2"))
+
+
+@pytest.mark.parametrize("key", ["apparent_tflops", "plausible"])
+def test_validate_artifact_wants_the_plausibility_keys(smoke_artifact, key):
+    """A streaming section without the apparent TFLOP/s or ``plausible``
+    (JAX's keys, gdkvm_tpu/eval/regression.py) fails validation."""
+    art = json.loads(json.dumps(smoke_artifact))
+    del art["sections"]["serve_256"]["ts8"][key]
+    with pytest.raises(AssertionError):
+        regression.validate_artifact(art)
 
 
 @pytest.mark.parametrize("smoke,rc", [(True, 0), (False, 1)], ids=["smoke", "full"])
